@@ -1,0 +1,150 @@
+"""Build and bind the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
+with a plain C interface, all sources at once in parallel, and linked
+into one shared library that ``ctypes`` loads.  The build happens at the
+first launch, from the sources in the checkout, into ``build/kernels/``
+at the repository root; the library's file name carries a hash of the
+sources and flags, so an edited source is never served a stale build.
+
+Nothing here runs at import: the CPU tests import every module on a host
+without ``nvcc`` or a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from ..device import nvcc_path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v", *ARCH]
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(nvcc: str) -> str:
+    h = hashlib.sha256()
+    h.update(" ".join([nvcc, *FLAGS]).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile and link the kernel library if this exact build is not on
+    disk yet; returns its path.  Raises with the compiler's output when
+    ``nvcc`` is missing or a source does not compile."""
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+            "the CUDA kernels cannot be built on this host")
+    lib = BUILD_DIR / f"libtomo_kernels-{_digest(nvcc)}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    procs: list[subprocess.Popen] = []
+    try:
+        objs = [work / f"{src.stem}.o" for src in sources()]
+        procs = [subprocess.Popen([nvcc, *FLAGS, "-c", str(src), "-o",
+                                   str(obj)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(src.name, log) for src, p, log
+                  in zip(sources(), procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"--- {name}\n{log}" for name, log in failed))
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o",
+                               str(work / lib.name), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
+                               f"{link.stderr}")
+        (BUILD_DIR / "build.log").write_text("\n".join(
+            f"--- {src.name}\n{log}" for src, log in zip(sources(), logs)))
+        os.replace(work / lib.name, lib)   # atomic for concurrent builders
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    lib = ctypes.CDLL(str(build()))
+    lib.tomo_error_string.argtypes = [ctypes.c_int]
+    lib.tomo_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def function(name: str, argtypes: tuple) -> ctypes._CFuncPtr:
+    """A C entry point of the library with its argument types declared
+    (pointers and the stream as ``c_void_p``, so none is cut to 32
+    bits); every entry point returns a ``cudaError_t`` as ``int``."""
+    fn = getattr(library(), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned another code than cudaSuccess."""
+    if err != 0:
+        msg = library().tomo_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"error {err} ({msg})")
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``, for the launch."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def require(t: torch.Tensor, name: str, dtypes: tuple[torch.dtype, ...],
+            shape: tuple[int | None, ...], device: torch.device | None = None
+            ) -> None:
+    """Check what a kernel takes: a contiguous CUDA tensor of one of
+    ``dtypes`` whose shape matches ``shape`` (None: any size), on
+    ``device`` when given."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel takes a CUDA tensor, "
+                         f"got {getattr(t, 'device', type(t))}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected one of "
+                         f"{dtypes}")
+    if t.dim() != len(shape) or any(
+            want is not None and got != want
+            for got, want in zip(t.shape, shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple('*' if s is None else s for s in shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: the kernel takes a contiguous tensor")

@@ -1,0 +1,203 @@
+"""The port's kernels against the JAX package's on the same inputs.
+
+On the CPU each op of the port runs its plain PyTorch version; the JAX
+side runs as its own tests run it (Pallas in interpret mode, or its
+reference).  Tolerances are those of tests/test_kernels.py.  The
+kernels themselves are held against these plain versions on the card by
+tests/test_torch_gpu.py."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels.backproject.kernel import backproject_pallas
+from repro.kernels.backproject.ops import backproject as jax_backproject
+from repro.kernels.backproject.ref import backproject_ref as jax_bp_ref
+from repro.kernels.correction.kernel import correct_pallas
+from repro.kernels.sino_filter.kernel import scale_spectrum_pallas
+from repro.kernels.sino_filter.ops import filter_sino as jax_filter_sino
+from repro.kernels.sino_filter.ref import make_filter as jax_make_filter
+
+from repro_torch.kernels.backproject import ref as bp_ref
+from repro_torch.kernels.backproject.kernel import backproject_cuda
+from repro_torch.kernels.backproject.ops import backproject
+from repro_torch.kernels.correction.kernel import correct_cuda
+from repro_torch.kernels.correction.ops import correct
+from repro_torch.kernels.correction.ref import correct_ref
+from repro_torch.kernels.sino_filter.kernel import scale_spectrum_cuda
+from repro_torch.kernels.sino_filter.ops import filter_sino
+from repro_torch.kernels.sino_filter.ref import (filter_sino_ref, make_filter,
+                                                 scale_spectrum_ref)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ----------------------------------------------------------- correction
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+@pytest.mark.parametrize("shape", [(2, 8, 128), (5, 33, 64), (1, 16, 256)])
+def test_correction_matches_jax(rng, dtype, shape):
+    raw = rng.integers(50, 40000, size=shape).astype(dtype)
+    dark = rng.integers(80, 120, size=shape[1:]).astype(dtype)
+    flat = rng.integers(30000, 42000, size=shape[1:]).astype(dtype)
+    want = correct_pallas(jnp.asarray(raw), jnp.asarray(dark),
+                          jnp.asarray(flat), interpret=True)
+    got = correct(_t(raw), _t(dark), _t(flat))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_correction_handles_dead_pixels():
+    raw = np.full((1, 8, 128), 0, np.uint16)          # dead detector
+    dark = np.full((8, 128), 100, np.uint16)
+    flat = np.full((8, 128), 100, np.uint16)           # flat == dark!
+    got = correct(_t(raw), _t(dark), _t(flat)).numpy()
+    assert np.all(np.isfinite(got))
+    want = correct_pallas(jnp.asarray(raw), jnp.asarray(dark),
+                          jnp.asarray(flat), interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+def test_correction_leading_dims(rng):
+    raw = rng.integers(50, 40000, size=(2, 3, 4, 16)).astype(np.uint16)
+    dark = rng.integers(80, 120, size=(4, 16)).astype(np.float32)
+    flat = rng.integers(30000, 42000, size=(4, 16)).astype(np.float32)
+    got = correct(_t(raw), _t(dark), _t(flat))
+    assert got.shape == (2, 3, 4, 16)
+    np.testing.assert_allclose(
+        got.numpy()[1, 2],
+        correct_ref(_t(raw[1, 2]), _t(dark), _t(flat)).numpy(),
+        rtol=1e-6, atol=1e-6)
+
+
+# ----------------------------------------------------------- sino filter
+@pytest.mark.parametrize("kind", ["ramlak", "shepp", "cosine", "hann"])
+def test_make_filter_matches_jax(kind):
+    for n_det in (32, 100, 2560):
+        np.testing.assert_array_equal(make_filter(n_det, kind),
+                                      jax_make_filter(n_det, kind))
+
+
+@pytest.mark.parametrize("kind", ["ramlak", "shepp", "cosine", "hann"])
+@pytest.mark.parametrize("F,D", [(6, 64), (3, 100), (16, 32)])
+def test_sino_filter_matches_jax(rng, kind, F, D):
+    sino = rng.normal(size=(F, D)).astype(np.float32)
+    filt = make_filter(D, kind)
+    want = jax_filter_sino(jnp.asarray(sino), jnp.asarray(filt),
+                           use_pallas=True, interpret=True)
+    got = filter_sino(_t(sino), _t(filt))
+    assert got.dtype == torch.float32 and got.shape == (F, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_sino_filter_leading_dims(rng):
+    sino = rng.normal(size=(2, 5, 40)).astype(np.float32)
+    filt = _t(make_filter(40, "shepp"))
+    got = filter_sino(_t(sino), filt)
+    np.testing.assert_allclose(
+        got.numpy()[1], filter_sino_ref(_t(sino[1]), filt).numpy(),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_scale_spectrum_matches_jax(rng):
+    re = rng.normal(size=(4, 65)).astype(np.float32)
+    im = rng.normal(size=(4, 65)).astype(np.float32)
+    filt = rng.normal(size=(1, 65)).astype(np.float32)
+    fre, fim = scale_spectrum_pallas(jnp.asarray(re), jnp.asarray(im),
+                                     jnp.asarray(filt), interpret=True)
+    got = scale_spectrum_ref(torch.complex(_t(re), _t(im)), _t(filt[0]))
+    np.testing.assert_allclose(got.real.numpy(), np.asarray(fre), rtol=1e-6)
+    np.testing.assert_allclose(got.imag.numpy(), np.asarray(fim), rtol=1e-6)
+
+
+# ----------------------------------------------------------- backprojection
+@pytest.mark.parametrize("A,D,N,bh,bw,ba", [
+    (16, 32, 32, 8, 16, 4),
+    (32, 64, 64, 8, 32, 16),
+    (24, 48, 48, 16, 16, 8),
+    (8, 128, 64, 8, 64, 2),
+])
+def test_backproject_matches_jax_kernel(rng, A, D, N, bh, bw, ba):
+    sino = rng.normal(size=(A, D)).astype(np.float32)
+    angles = np.linspace(0, np.pi, A, endpoint=False).astype(np.float32)
+    want = backproject_pallas(jnp.asarray(sino),
+                              jnp.cos(jnp.asarray(angles)).reshape(-1, 1),
+                              jnp.sin(jnp.asarray(angles)).reshape(-1, 1),
+                              out_size=N, bh=bh, bw=bw, ba=ba, interpret=True)
+    got = backproject(_t(sino), _t(angles), N)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_backproject_batched_matches_jax(rng):
+    sino = rng.normal(size=(3, 16, 32)).astype(np.float32)
+    angles = np.linspace(0, np.pi, 16, endpoint=False).astype(np.float32)
+    want = jax_backproject(jnp.asarray(sino), jnp.asarray(angles), 32)
+    got = backproject(_t(sino), _t(angles), 32)
+    assert got.shape == (3, 32, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_backproject_centre_offset_matches_jax(rng):
+    sino = rng.normal(size=(16, 32)).astype(np.float32)
+    angles = np.linspace(0, np.pi, 16, endpoint=False).astype(np.float32)
+    want = jax_backproject(jnp.asarray(sino), jnp.asarray(angles), 32,
+                           centre=17.5)
+    got = backproject(_t(sino), _t(angles), 32, centre=17.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_backproject_ragged_shapes_match_jax_ref(rng):
+    """Odd angle counts and sizes no tile divides (the main path has
+    1801 angles) against the JAX reference."""
+    sino = rng.normal(size=(2, 17, 30)).astype(np.float32)
+    angles = np.linspace(0, np.pi, 17, endpoint=False).astype(np.float32)
+    got = backproject(_t(sino), _t(angles), 27)
+    for i in range(2):
+        want = jax_bp_ref(jnp.asarray(sino[i]), jnp.asarray(angles), 27)
+        np.testing.assert_allclose(got.numpy()[i], np.asarray(want),
+                                   rtol=2e-4, atol=2e-5)
+
+
+def test_backproject_angle_chunks_agree(rng, monkeypatch):
+    """The plain version sums over angle chunks to bound memory; the
+    chunking must not change the result."""
+    sino = _t(rng.normal(size=(2, 24, 32)).astype(np.float32))
+    angles = torch.linspace(0, np.pi, 25)[:-1]
+    whole = bp_ref.backproject_ref(sino, angles, 32)
+    monkeypatch.setattr(bp_ref, "CHUNK_ELEMS", 2 * 32 * 32 * 5)
+    chunked = bp_ref.backproject_ref(sino, angles, 32)
+    np.testing.assert_allclose(chunked.numpy(), whole.numpy(),
+                               rtol=2e-4, atol=2e-5)
+
+
+# ----------------------------------------------------------- wrappers
+def test_plain_path_launches_no_kernel(rng):
+    before = (correct_cuda.launches, scale_spectrum_cuda.launches,
+              backproject_cuda.launches)
+    correct(_t(rng.integers(0, 9, size=(1, 4, 8)).astype(np.uint16)),
+            torch.zeros(4, 8), torch.ones(4, 8))
+    filter_sino(torch.zeros(2, 8), _t(make_filter(8)))
+    backproject(torch.zeros(4, 8), torch.zeros(4), 8)
+    assert (correct_cuda.launches, scale_spectrum_cuda.launches,
+            backproject_cuda.launches) == before
+
+
+@pytest.mark.parametrize("call", [
+    lambda: correct_cuda(torch.zeros(1, 4, 8), torch.zeros(4, 8),
+                         torch.ones(4, 8)),
+    lambda: scale_spectrum_cuda(torch.zeros(2, 5, dtype=torch.complex64),
+                                torch.ones(5)),
+    lambda: backproject_cuda(torch.zeros(1, 4, 8), torch.ones(4),
+                             torch.zeros(4), 8),
+], ids=["correction", "spectrum_scale", "backprojection"])
+def test_kernel_wrapper_refuses_cpu_tensor(call):
+    """A wrapper launches its kernel or raises: never the plain version."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
