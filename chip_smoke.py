@@ -8,16 +8,34 @@ Phases, each fatal on failure:
 1. environment: torch/CUDA versions, the nvcc path, the card's name and
    power limit (nvidia-smi); builds the CUDA kernels and times the build;
 2. kernels: each hand-written kernel against its plain PyTorch version
-   on the card at the main path's shapes, with the tolerances of the
+   on the card at the main paths' shapes, with the tolerances of the
    JAX package's kernel tests; times the kernel, the plain version and,
-   where one PyTorch call computes the same function, that call;
-3. the main path: ``standard_chain(n_det=2560, n_angles=1801,
+   where one PyTorch call computes the same function, that call.  Flash
+   attention is held at the serving shape in bf16 (rtol 1e-2, atol
+   1e-3, tighter than the JAX test's 5e-2 at S 64, where outputs are
+   larger) and over an fp32 sweep (2e-5: causal or not, groups 1, 4
+   and 48, D 64 and 128, ragged lengths);
+3. the tomography path: ``standard_chain(n_det=2560, n_angles=1801,
    n_rows=16)`` through ``PluginRunner`` on ``CudaTransport("cuda")``
    with every kernel's launch count set to 0 just before; checks that
    every kernel launched and that the reconstruction matches the
    phantom (correlation > 0.85 over the [8:-8] crop);
 4. chain parity: one small scan through the chain on the card with the
-   kernels and on the CPU with the plain versions (rtol 1e-3, atol 1e-4).
+   kernels and on the CPU with the plain versions (rtol 1e-3, atol 1e-4);
+5. the serving path: granite-8b at full width (36 layers, d_model 4096,
+   bf16, random weights from seed 0) with ``use_flash`` through
+   ``ContinuousBatcher``: 8 requests of 2048 prompt tokens and 64 new
+   tokens each on 4 slots, ``max_len`` 4096; the flash kernel's count is
+   set to 0 just before and must read 8 prefills x 36 layers = 288;
+   every logit finite, every token in the vocabulary; then three decode
+   steps of a fresh batch under ``torch.profiler`` give the kernel time
+   of a step, and that kernel time against the serving run's median
+   step (two different windows) an estimate of the device's idle share;
+6. LM parity: the granite-8b smoke model (fp32) with the kernel on the
+   card against the plain version on the CPU (same weights, 5 requests
+   on 2 slots: identical tokens, prefill logits within 2e-4), and at
+   full width with 2 layers in fp32 the kernel path against the plain
+   path on the card (prefill logits within 2e-4).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -26,6 +44,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -33,15 +52,37 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 
 #: published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12      # dense tensor-core rate
 #: the main path: PCO.edge 5.5 width (2560 columns), a 180° scan of 1801
 #: projections; rows cut from the detector's 2160 to 16
 MAIN = {"n_det": 2560, "n_angles": 1801, "n_rows": 16}
 PARITY = {"n_det": 256, "n_angles": 256, "n_rows": 2}
+#: flash attention at the serving shape: granite-8b's (B, Hq, Hkv, S, D)
+#: for one 2048-token prompt
+FLASH_MAIN = (1, 32, 8, 2048, 128)
+#: (rtol, atol) there: both sides compute in fp32 from the same bf16
+#: inputs, so they differ by the output's bf16 rounding (one ulp is at
+#: most 2**-7 of the value) and the order of the sums; at S 2048 an output
+#: is typically 0.02-0.07, so a dropped or misread 64-key tile moves it by
+#: several times the atol
+FLASH_BF16_TOL = (1e-2, 1e-3)
+#: fp32 sweep: group sizes 1, 4 and 48 (granite-34b's MQA), D 64 and 128,
+#: lengths no 64-row tile divides
+FLASH_SWEEP = [(2, 8, 8, 512, 64), (1, 32, 8, 1000, 128),
+               (1, 48, 1, 1000, 128), (2, 8, 2, 1000, 64)]
+#: the serving path: requests, slots, prompt and new tokens, cache length
+#: (granite-8b-code's 4K context)
+SERVE = {"arch": "granite-8b", "requests": 8, "slots": 4,
+         "prompt_len": 2048, "max_new": 64, "max_len": 4096}
+#: decode steps under torch.profiler after the serving run
+PROFILED_STEPS = 3
 #: fp32 operations per (pixel, angle) backprojection update: the
 #: position step (1), the fraction (1), the lerp a + f(b - a) (3, the
 #: multiply-add counted as 2) and the accumulation (1)
@@ -53,17 +94,47 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    """Least time for the work: bytes over the memory rate or fp32
-    operations over the peak rate, whichever is larger."""
+def bound_ms(n_bytes: float, flops: float,
+             peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    """Least time for the work: bytes over the memory rate or operations
+    over the peak rate of their type, whichever is larger."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def jax_layout_params(cfg, rng) -> dict:
+    """Random LM weights in the JAX package's parameter layout (numpy,
+    leaves stacked over layers), for ``params_from_jax``."""
+    d, hd, n = cfg.d_model, cfg.hd, cfg.n_layers
+
+    def w(shape, fan_in):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                / np.float32(np.sqrt(fan_in)))
+
+    def scale():
+        return 1 + 0.1 * rng.standard_normal((n, d), dtype=np.float32)
+
+    tree = {"embed": w((cfg.vocab, d), d),
+            "ln_f": 1 + 0.1 * rng.standard_normal(d, dtype=np.float32),
+            "layers": ({
+                "ln1": scale(), "ln2": scale(),
+                "attn": {"wq": w((n, d, cfg.n_heads, hd), d),
+                         "wk": w((n, d, cfg.n_kv_heads, hd), d),
+                         "wv": w((n, d, cfg.n_kv_heads, hd), d),
+                         "wo": w((n, cfg.n_heads, hd, d), cfg.n_heads * hd)},
+                "mlp": {"w_up": w((n, d, cfg.d_ff), d),
+                        "w_down": w((n, cfg.d_ff, d), cfg.d_ff),
+                        "w_gate": w((n, d, cfg.d_ff), d)}},)}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = w((cfg.vocab, d), d)
+    return tree
 
 
 def main() -> None:
     try:
         import torch
+        from torch.autograd import DeviceType
     except ImportError:
         fail("torch is not importable")
     if not torch.cuda.is_available():
@@ -72,8 +143,11 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    # fp32 products in full fp32 on the card, as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
-    import numpy as np
+    from repro_torch.configs import get_config
     from repro_torch.core import CudaTransport, PluginRunner
     from repro_torch.device import probe
     from repro_torch.kernels import build
@@ -81,13 +155,20 @@ def main() -> None:
     from repro_torch.kernels.backproject.ref import backproject_ref
     from repro_torch.kernels.correction.kernel import correct_cuda
     from repro_torch.kernels.correction.ref import correct_ref
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import mha_ref
     from repro_torch.kernels.sino_filter.kernel import scale_spectrum_cuda
     from repro_torch.kernels.sino_filter.ops import filter_sino
     from repro_torch.kernels.sino_filter.ref import (filter_sino_ref,
                                                      make_filter,
                                                      scale_spectrum_ref)
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import params_from_jax
     from repro_torch.tomo import (ParallelGeometry, phantom_stack,
                                   simulate_raw_scan, standard_chain)
+    from repro_torch.training import (ContinuousBatcher, Request,
+                                      make_serve_step)
 
     dev = torch.device("cuda")
 
@@ -235,9 +316,43 @@ def main() -> None:
     print(f"backprojection updates in this run: {updates} "
           f"({BP_FLOPS_PER_UPDATE} fp32 operations each)")
     del sino
+
+    def qkv(shape, dtype):
+        b_, hq, hkv, s_, d_ = shape
+        return [torch.randn((b_, h, s_, d_), generator=gen, device=dev
+                            ).to(dtype) for h in (hq, hkv, hkv)]
+
+    q, k, v = qkv(FLASH_MAIN, torch.bfloat16)
+    err = compare("flash attention (bf16, serving shape)",
+                  flash_attention_cuda(q, k, v), mha_ref(q, k, v),
+                  *FLASH_BF16_TOL)
+    for shape in FLASH_SWEEP:
+        q32, k32, v32 = qkv(shape, torch.float32)
+        for causal in (True, False):
+            compare(f"flash attention (fp32, {shape}, causal={causal})",
+                    flash_attention_cuda(q32, k32, v32, causal=causal),
+                    mha_ref(q32, k32, v32, causal=causal), 2e-5, 2e-5)
+    del q32, k32, v32
+    fb, fhq, _, fs, fd = FLASH_MAIN
+    # each input read once and the output written once; causal pairs
+    # (r, c <= r) cost 2D operations for q.k and 2D for p.v
+    b, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
+                     4 * fb * fhq * fd * fs * (fs + 1) / 2, PEAK_BF16_FLOPS)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": f"{src}/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: flash_attention_cuda(q, k, v), 20),
+        "plain_ms": cuda_ms(lambda: mha_ref(q, k, v), 5),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                           enable_gqa=True), 20)})
+    del q, k, v
     torch.cuda.empty_cache()
 
-    # -- 3. the main path --------------------------------------------------
+    # -- 3. the tomography path --------------------------------------------
     wrappers = {"correction": correct_cuda,
                 "spectrum_scale": scale_spectrum_cuda,
                 "backprojection": backproject_cuda}
@@ -251,7 +366,7 @@ def main() -> None:
     chain_s = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = launches.get(row["name"])
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"main path launched no {missing} kernel")
@@ -298,6 +413,159 @@ def main() -> None:
         fail(f"chain parity: card vs CPU max abs err {perr:.3e} "
              f"(rtol 1e-3, atol 1e-4)")
     print(f"chain parity {PARITY}: max abs err card vs CPU {perr:.3e}")
+
+    # -- 5. the serving path: granite-8b at full width ---------------------
+    cfg = dataclasses.replace(get_config(SERVE["arch"]), use_flash=True)
+    model = build_model(cfg, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+    prefill_ms, decode_ms, first_token_s = [], [], []
+
+    def timed(fn, times, marks=None):
+        """``fn`` synchronised and timed; counts non-finite logits."""
+        def call(*args):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            logits, cache = fn(*args)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t) * 1e3)
+            if marks is not None:
+                marks.append(time.perf_counter() - run_t0)
+            nonfinite.add_((~torch.isfinite(logits)).sum())
+            return logits, cache
+        return call
+
+    served = dataclasses.replace(
+        model, prefill=timed(model.prefill, prefill_ms, first_token_s),
+        decode_step=timed(model.decode_step, decode_ms))
+    batcher = ContinuousBatcher(served, params, slots=SERVE["slots"],
+                                max_len=SERVE["max_len"])
+    rng = np.random.default_rng(0)
+    for i in range(SERVE["requests"]):
+        batcher.submit(Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab, (SERVE["prompt_len"],)
+                                       ).astype(np.int32),
+            max_new=SERVE["max_new"]))
+    flash_attention_cuda.launches = 0
+    run_t0 = time.perf_counter()
+    done = batcher.run()
+    torch.cuda.synchronize(dev)
+    serve_s = time.perf_counter() - run_t0
+    flash_launches = flash_attention_cuda.launches
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["launches"] = flash_launches
+    n_tokens = sum(len(r.generated) for r in done)
+    print(json.dumps({
+        "serve": SERVE, "init_s": init_s, "wall_s": serve_s,
+        "prefill_ms": prefill_ms,
+        "prefill_ms_median": statistics.median(prefill_ms),
+        "first_token_s": first_token_s,
+        "decode_steps": len(decode_ms),
+        "decode_step_ms_median": statistics.median(decode_ms),
+        "decode_step_ms_max": max(decode_ms),
+        "tokens": n_tokens, "tokens_per_s": n_tokens / serve_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "launches": {"flash_attention": flash_launches}}))
+    want_launches = SERVE["requests"] * cfg.n_layers
+    if flash_launches != want_launches:
+        fail(f"serving launched the flash kernel {flash_launches} times, "
+             f"expected {want_launches}")
+    if sorted(r.rid for r in done) != list(range(SERVE["requests"])):
+        fail(f"served {sorted(r.rid for r in done)}")
+    for r in done:
+        if len(r.generated) != SERVE["max_new"] or not all(
+                0 <= t < cfg.vocab for t in r.generated):
+            fail(f"request {r.rid}: {len(r.generated)} tokens, some "
+                 f"outside [0, {cfg.vocab})")
+    if int(nonfinite):
+        fail(f"{int(nonfinite)} non-finite logits while serving")
+    # where a decode step's time goes: kernel time on the card against the
+    # wall, over a few steps of a fresh batch (a step attends over all
+    # max_len slots whatever the length, so each costs the same)
+    step = make_serve_step(model)
+    cache = model.init_cache(SERVE["slots"], SERVE["max_len"])
+    tok = torch.zeros((SERVE["slots"], 1), dtype=torch.int32, device=dev)
+    for _ in range(2):
+        tok, cache = step(params, tok, cache)
+    torch.cuda.synchronize(dev)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            tok, cache = step(params, tok, cache)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    stats = prof.key_averages()
+    # kernel time counted once: on the device's own events, not again
+    # under the CPU ops that launched them
+    busy_ms = sum(e.self_device_time_total for e in stats
+                  if e.device_type == DeviceType.CUDA) / 1e3 / PROFILED_STEPS
+    launches_per_step = sum(e.count for e in stats if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+        "cudaLaunchKernelExC")) / PROFILED_STEPS
+    step_ms = statistics.median(decode_ms)
+    print(json.dumps({"decode_profile": {
+        "steps": PROFILED_STEPS, "profiled_wall_ms_per_step": wall_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "idle_share_of_serving_step": (1 - busy_ms / step_ms
+                                       if busy_ms else None),
+        "kernel_launches_per_step": launches_per_step}}))
+    del model, served, batcher, params, done, cache, prof
+    torch.cuda.empty_cache()
+
+    # -- 6. LM parity ---------------------------------------------------
+    cfg = dataclasses.replace(get_config(SERVE["arch"], smoke=True),
+                              use_flash=True)
+    tree = jax_layout_params(cfg, np.random.default_rng(0))
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (5, 24))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device)
+        logits = []
+
+        def prefill(params, batch, max_len, model=model, logits=logits):
+            out, cache = model.prefill(params, batch, max_len)
+            logits.append(out.cpu())
+            return out, cache
+
+        batcher = ContinuousBatcher(
+            dataclasses.replace(model, prefill=prefill),
+            params_from_jax(tree, cfg, device), slots=2, max_len=40)
+        for i, p in enumerate(prompts):
+            batcher.submit(Request(rid=i, prompt=p, max_new=8))
+        flash_attention_cuda.launches = 0
+        tokens = {r.rid: r.generated for r in batcher.run()}
+        runs[device] = (tokens, torch.cat(logits),
+                        flash_attention_cuda.launches)
+    (card_toks, card_logits, n_card), (cpu_toks, cpu_logits, n_cpu) = \
+        runs["cuda"], runs["cpu"]
+    if (n_card, n_cpu) != (5 * cfg.n_layers, 0):
+        fail(f"LM parity: {n_card} kernel launches on the card, {n_cpu} "
+             f"on the CPU")
+    if card_toks != cpu_toks:
+        fail(f"LM parity: tokens differ, card {card_toks} cpu {cpu_toks}")
+    lm_err = compare("LM parity: smoke prefill logits, card vs CPU",
+                     card_logits, cpu_logits, 2e-4, 2e-4)
+    cfg = dataclasses.replace(get_config(SERVE["arch"]), n_layers=2,
+                              dtype=torch.float32)
+    params = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(1))
+    batch = {"tokens": np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, SERVE["prompt_len"]))}
+    wide = [build_model(dataclasses.replace(cfg, use_flash=f), dev).prefill(
+        params, batch, SERVE["prompt_len"])[0] for f in (True, False)]
+    wide_err = compare("LM parity: full width, 2 layers, fp32, kernel vs "
+                       "plain", wide[0], wide[1], 2e-4, 2e-4)
+    print(f"LM parity: smoke tokens identical over 5 requests, prefill "
+          f"logits max abs err {lm_err:.3e}; full width 2 layers "
+          f"{wide_err:.3e}")
+    del params, wide
 
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,0 +1,60 @@
+"""Wrapper of the CUDA flash-attention kernel (csrc/flash_attention.cu)."""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from .. import build
+
+#: head dims the kernel is compiled for (the reference's tests use 16,
+#: 32 and 64; every configuration of the repo uses 64 or 128)
+HEAD_DIMS = (16, 32, 64, 128)
+_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (
+    ctypes.c_float, ctypes.c_void_p)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """q (B, Hq, S, D), k/v (B, Hkv, S, D), float32 or bfloat16,
+    contiguous on one CUDA device -> (B, Hq, S, D) in q's dtype."""
+    build.require(q, "flash_attention q", _DTYPES, (None,) * 4)
+    b, hq, s, d = q.shape
+    build.require(k, "flash_attention k", (q.dtype,), (b, None, None, d),
+                  q.device)
+    hkv = k.shape[1]
+    if k.shape[2] != s:
+        raise ValueError(f"flash_attention: k has {k.shape[2]} positions "
+                         f"and q {s}; the kernel takes one length for both")
+    build.require(v, "flash_attention v", (q.dtype,), tuple(k.shape),
+                  q.device)
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"flash_attention: {hq} q heads are not a multiple "
+                         f"of {hkv} kv heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d}, the kernel takes "
+                         f"{HEAD_DIMS}")
+    if max(b, (s + 63) // 64) > 65535:
+        raise ValueError(f"flash_attention: batch {b} or length {s} exceeds "
+                         f"one launch's grid")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    scale = float(np.float32(1.0 / math.sqrt(d)))
+    fn = build.function("flash_attention", _ARGS)
+    err = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b, hq,
+             hkv, s, d, int(causal), int(q.dtype == torch.bfloat16), scale,
+             build.stream(q.device))
+    build.check(err, "flash_attention")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0

@@ -1,0 +1,174 @@
+"""Decoder-only transformer LM, dense family.
+
+The reference stacks the layers' parameters and scans over them; here
+the layers are an ``nn.ModuleList`` walked by a Python loop, in the
+reference's order (group by group, sub-layer by sub-layer), so the KV
+cache's leading axis means the same layer in both.  Block weights and
+norm scales are stored in ``cfg.dtype`` once, at init or load: that is
+what every per-use cast of the reference computes, at half the memory
+in bf16.  The embedding and unembedding tables stay in
+``cfg.param_dtype`` (fp32).  Rematerialisation is a training concern
+and ``cfg.remat`` is ignored.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .attention import (Attention, _qkv, attention_decode, attention_fwd,
+                        init_attention)
+from .common import ModelConfig, frozen
+from .kernels_glue import flash_attention
+from .layers import embed_tokens, init_embedding, rms_norm, unembed
+from .mlp import MLP, init_mlp, mlp_fwd
+
+MOE_TODO = "ROADMAP.md queue 1, item 9: MoE (models/moe.py)"
+
+
+class Block(nn.Module):
+    """One dense sub-layer: ln1, attention, ln2, MLP."""
+
+    def __init__(self, ln1: torch.Tensor, attn: Attention,
+                 ln2: torch.Tensor, mlp: MLP):
+        super().__init__()
+        self.ln1 = frozen(ln1)
+        self.attn = attn
+        self.ln2 = frozen(ln2)
+        self.mlp = mlp
+
+
+class LM(nn.Module):
+    """embed (vocab, d), layers, ln_f (d), unembed (vocab, d) or None
+    when the embedding is tied."""
+
+    def __init__(self, embed: torch.Tensor, layers: list[Block],
+                 ln_f: torch.Tensor, unembed: torch.Tensor | None = None):
+        super().__init__()
+        self.embed = frozen(embed)
+        self.layers = nn.ModuleList(layers)
+        self.ln_f = frozen(ln_f)
+        self.unembed = None if unembed is None else frozen(unembed)
+
+    @property
+    def out_table(self) -> torch.Tensor:
+        return self.embed if self.unembed is None else self.unembed
+
+
+# ----------------------------------------------------------------------
+def _group_structure(cfg: ModelConfig) -> tuple[int, list[str]]:
+    """(n_groups, sublayer kinds per group).  kinds: 'dense' | 'moe'."""
+    if not cfg.is_moe or cfg.moe_every == 0:
+        return cfg.n_layers, ["dense"]
+    g = cfg.moe_every
+    assert cfg.n_layers % g == 0, (cfg.n_layers, g)
+    kinds = ["dense"] * (g - 1) + ["moe"]
+    return cfg.n_layers // g, kinds
+
+
+def dense_groups(cfg: ModelConfig) -> tuple[int, list[str]]:
+    """``_group_structure`` for the kinds the port has."""
+    n_groups, kinds = _group_structure(cfg)
+    if "moe" in kinds:
+        raise NotImplementedError(f"{cfg.arch_id}: MoE sub-layers are not "
+                                  f"ported yet ({MOE_TODO})")
+    return n_groups, kinds
+
+
+def init_lm(generator: torch.Generator, cfg: ModelConfig) -> LM:
+    """Random weights on the generator's device, drawn in fp32."""
+    n_groups, kinds = dense_groups(cfg)
+    dev, d = generator.device, cfg.d_model
+    embed = init_embedding(generator, cfg)
+    layers = [Block(torch.ones(d, dtype=cfg.dtype, device=dev),
+                    init_attention(generator, cfg, cfg.dtype),
+                    torch.ones(d, dtype=cfg.dtype, device=dev),
+                    init_mlp(generator, d, cfg.d_ff, cfg.dtype))
+              for _ in range(n_groups) for _ in kinds]
+    out = None if cfg.tie_embeddings else init_embedding(generator, cfg)
+    return LM(embed, layers, torch.ones(d, dtype=cfg.dtype, device=dev), out)
+
+
+# ----------------------------------------------------------------------
+def _ffn(sub: Block, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, sub.ln2.to(cfg.dtype), cfg.norm_eps)
+    return x + mlp_fwd(sub.mlp, h, cfg.dtype)
+
+
+def lm_forward(params: LM, cfg: ModelConfig, *,
+               tokens: torch.Tensor | None = None,
+               embeds: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (logits (B, S, vocab) fp32, aux_loss scalar)."""
+    if embeds is None:
+        x = embed_tokens(params.embed, tokens, cfg.dtype)
+    else:
+        x = embeds.to(cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for sub in params.layers:
+        h = rms_norm(x, sub.ln1.to(cfg.dtype), cfg.norm_eps)
+        x = x + attention_fwd(sub.attn, h, cfg, positions=positions)
+        x = _ffn(sub, x, cfg)
+    x = rms_norm(x, params.ln_f.to(cfg.dtype), cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return unembed(params.out_table, x), aux
+
+
+# ----------------------------------------------------------------------
+# Serving: prefill + single-token decode with stacked KV caches.
+def lm_prefill(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+               max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+    """Run the prompt, return (last-position logits, cache).
+
+    The cache holds exactly the prompt K/V (after RoPE; padded with zeros
+    to ``max_len`` slots when given) with layout (L, B, Hkv, S, hd).
+    """
+    x = embed_tokens(params.embed, tokens, cfg.dtype)
+    return _prefill_from_embeds(params, cfg, x, max_len)
+
+
+def lm_prefill_embeds(params: LM, cfg: ModelConfig, embeds: torch.Tensor,
+                      max_len: int | None = None
+                      ) -> tuple[torch.Tensor, dict]:
+    """Prefill from precomputed embeddings (VLM patch+token prompts)."""
+    return _prefill_from_embeds(params, cfg, embeds.to(cfg.dtype), max_len)
+
+
+def _prefill_from_embeds(params: LM, cfg: ModelConfig, x: torch.Tensor,
+                         max_len: int | None = None
+                         ) -> tuple[torch.Tensor, dict]:
+    b, s, _ = x.shape
+    max_len = max_len or s
+    positions = torch.arange(s, device=x.device)
+    shape = (len(params.layers), b, cfg.n_kv_heads, max_len, cfg.hd)
+    k_all = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    v_all = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    for i, sub in enumerate(params.layers):
+        h = rms_norm(x, sub.ln1.to(cfg.dtype), cfg.norm_eps)
+        q, k, v = _qkv(sub.attn, h, cfg, positions)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        o = flash_attention(qh, kh, vh, causal=True,
+                            use_pallas=cfg.use_flash)
+        y = torch.einsum("bshk,hkd->bsd", o.transpose(1, 2),
+                         sub.attn.wo.to(cfg.dtype))
+        x = _ffn(sub, x + y, cfg)
+        k_all[i, :, :, :s] = kh
+        v_all[i, :, :, :s] = vh
+    x = rms_norm(x, params.ln_f.to(cfg.dtype), cfg.norm_eps)
+    logits = unembed(params.out_table, x[:, -1:, :])
+    return logits, {"k": k_all, "v": v_all, "length": s}
+
+
+def lm_decode_step(params: LM, cfg: ModelConfig, token: torch.Tensor,
+                   cache: dict) -> tuple[torch.Tensor, dict]:
+    """token (B, 1) -> (logits (B, 1, vocab), cache).  The cache's K/V
+    tensors are updated in place and returned with ``length + 1``."""
+    x = embed_tokens(params.embed, token, cfg.dtype)
+    length = cache["length"]
+    for i, sub in enumerate(params.layers):
+        h = rms_norm(x, sub.ln1.to(cfg.dtype), cfg.norm_eps)
+        y, _, _ = attention_decode(sub.attn, h, cache["k"][i],
+                                   cache["v"][i], length, cfg)
+        x = _ffn(sub, x + y, cfg)
+    x = rms_norm(x, params.ln_f.to(cfg.dtype), cfg.norm_eps)
+    logits = unembed(params.out_table, x)
+    return logits, {"k": cache["k"], "v": cache["v"], "length": length + 1}

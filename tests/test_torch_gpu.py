@@ -11,7 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import CudaTransport, PluginRunner
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.kernels.flash_attention.ref import mha_ref
 from repro_torch.kernels.backproject.kernel import backproject_cuda
 from repro_torch.kernels.backproject.ops import backproject
 from repro_torch.kernels.backproject.ref import backproject_ref
@@ -21,6 +25,7 @@ from repro_torch.kernels.correction.ref import correct_ref
 from repro_torch.kernels.sino_filter.kernel import scale_spectrum_cuda
 from repro_torch.kernels.sino_filter.ops import filter_sino
 from repro_torch.kernels.sino_filter.ref import filter_sino_ref, make_filter
+from repro_torch.models import build_model
 from repro_torch.tomo import (ParallelGeometry, phantom_stack,
                               simulate_raw_scan, standard_chain)
 
@@ -31,6 +36,8 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # the plain versions' fp32 products in full fp32, as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -87,3 +94,67 @@ def test_chain_on_card_matches_cpu(cuda):
         runner = PluginRunner(chain, CudaTransport(device))
         recons.append(runner.transport.read(runner.run()["recon"]))
     np.testing.assert_allclose(recons[0], recons[1], rtol=1e-3, atol=1e-4)
+
+
+# (B, Hq, Hkv, S, D): the reference's sweep, then group sizes 4 and 48
+# (granite-34b's MQA) at D 128 and ragged lengths no tile divides
+FLASH_CASES = [(2, 4, 2, 64, 16), (1, 8, 1, 128, 32), (2, 4, 4, 32, 64),
+               (1, 6, 2, 96, 16), (1, 32, 8, 1000, 128), (1, 48, 1, 200, 128),
+               (2, 4, 2, 77, 64), (1, 2, 1, 1, 32)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", FLASH_CASES)
+def test_flash_attention_kernel_on_card(cuda, rng, B, Hq, Hkv, S, D, causal):
+    q = _t(rng.normal(size=(B, Hq, S, D)).astype(np.float32)).to(cuda)
+    k = _t(rng.normal(size=(B, Hkv, S, D)).astype(np.float32)).to(cuda)
+    v = _t(rng.normal(size=(B, Hkv, S, D)).astype(np.float32)).to(cuda)
+    n = flash_attention_cuda.launches
+    got = attention(q, k, v, causal=causal, use_pallas=True)
+    assert flash_attention_cuda.launches == n + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               mha_ref(q, k, v, causal=causal).cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_kernel_bf16_on_card(cuda, rng):
+    """Both sides compute in fp32 from the same bf16 inputs and differ by
+    the output's rounding (at most 2**-7 of a value) and the order of the
+    sums; a missing or misread key tile moves outputs of about 0.1 (S
+    300) by far more than the atol."""
+    q, k, v = (_t(rng.normal(size=(1, 4, 300, 128))).to(cuda, torch.bfloat16)
+               for _ in range(3))
+    got = flash_attention_cuda(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               mha_ref(q, k, v).float().cpu().numpy(),
+                               rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("shapes,match", [
+    (((1, 2, 64, 32), (1, 2, 48, 32)), "one length"),
+    (((1, 2, 64, 48), (1, 2, 64, 48)), "head dim"),
+    (((1, 3, 64, 32), (1, 2, 64, 32)), "multiple"),
+], ids=["sq_ne_sk", "head_dim", "groups"])
+def test_flash_attention_kernel_refuses_on_card(cuda, shapes, match):
+    q = torch.zeros(shapes[0], device=cuda)
+    kv = torch.zeros(shapes[1], device=cuda)
+    with pytest.raises(ValueError, match=match):
+        flash_attention_cuda(q, kv, kv)
+
+
+def test_lm_prefill_with_kernel_matches_cpu(cuda):
+    """A smoke LM prefilled through the kernel on the card against the
+    plain version on the CPU, with the same weights."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("granite-8b", smoke=True),
+                              use_flash=True)
+    cpu_model, card_model = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 40))
+    want, _ = cpu_model.prefill(params, {"tokens": toks}, 48)
+    n = flash_attention_cuda.launches
+    got, _ = card_model.prefill(params.to(cuda), {"tokens": toks}, 48)
+    assert flash_attention_cuda.launches == n + cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)

@@ -14,7 +14,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import ChunkedFileTransport, InMemoryTransport, \
     PluginRunner
+from repro_torch.configs import get_config
 from repro_torch.kernels.backproject.ops import backproject
+from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.launch import serve
+from repro_torch.models import build_model
 from repro_torch.tomo import ParallelGeometry, forward_project, \
     standard_chain
 
@@ -47,7 +51,7 @@ def test_port_imports_no_jax_and_no_reference_package():
 def test_port_imports_with_jax_and_reference_blocked():
     ops = sorted(f"repro_torch.kernels.{p.parent.name}.ops"
                  for p in PORT.glob("kernels/*/ops.py"))
-    assert len(ops) == 3
+    assert len(ops) == 4
     code = "\n".join([
         "import sys",
         "sys.modules['jax'] = None",
@@ -55,7 +59,9 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import importlib",
         *[f"importlib.import_module({m!r})"
           for m in ["repro_torch", "repro_torch.core", "repro_torch.tomo",
-                    *ops]],
+                    "repro_torch.configs", "repro_torch.models",
+                    "repro_torch.models.convert", "repro_torch.training",
+                    "repro_torch.launch.serve", *ops]],
         "print('imported')"])
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -82,7 +88,10 @@ def test_runner_without_transport_needs_the_card(no_cuda):
     lambda: ChunkedFileTransport(),
     lambda: forward_project(np.zeros((1, 4, 4), np.float32),
                             ParallelGeometry(2, 4, 1)),
-], ids=["resolve_device", "inmemory", "chunked", "forward_project"])
+    lambda: build_model(get_config("granite-8b", smoke=True)),
+    lambda: serve.main(["--smoke", "--requests", "1"]),
+], ids=["resolve_device", "inmemory", "chunked", "forward_project",
+        "build_model", "serve"])
 def test_entry_points_default_to_the_card(no_cuda, make):
     with pytest.raises(RuntimeError, match="cpu"):
         make()
@@ -94,3 +103,9 @@ def test_backproject_kernel_requested_off_the_card_raises():
     sino = torch.zeros((4, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         backproject(sino, torch.zeros(4, device="meta"), 8)
+
+
+def test_flash_kernel_requested_off_the_card_raises():
+    q = torch.zeros((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        attention(q, q, q, use_pallas=True)

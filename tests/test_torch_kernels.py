@@ -15,6 +15,10 @@ from repro.kernels.backproject.kernel import backproject_pallas
 from repro.kernels.backproject.ops import backproject as jax_backproject
 from repro.kernels.backproject.ref import backproject_ref as jax_bp_ref
 from repro.kernels.correction.kernel import correct_pallas
+from repro.kernels.flash_attention.kernel import flash_attention_pallas
+from repro.kernels.flash_attention.ref import \
+    mha_chunked_ref as jax_mha_chunked_ref
+from repro.kernels.flash_attention.ref import mha_ref as jax_mha_ref
 from repro.kernels.sino_filter.kernel import scale_spectrum_pallas
 from repro.kernels.sino_filter.ops import filter_sino as jax_filter_sino
 from repro.kernels.sino_filter.ref import make_filter as jax_make_filter
@@ -25,6 +29,9 @@ from repro_torch.kernels.backproject.ops import backproject
 from repro_torch.kernels.correction.kernel import correct_cuda
 from repro_torch.kernels.correction.ops import correct
 from repro_torch.kernels.correction.ref import correct_ref
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.kernels.flash_attention.ref import mha_chunked_ref, mha_ref
 from repro_torch.kernels.sino_filter.kernel import scale_spectrum_cuda
 from repro_torch.kernels.sino_filter.ops import filter_sino
 from repro_torch.kernels.sino_filter.ref import (filter_sino_ref, make_filter,
@@ -177,7 +184,82 @@ def test_backproject_angle_chunks_agree(rng, monkeypatch):
                                rtol=2e-4, atol=2e-5)
 
 
+# ----------------------------------------------------------- flash attention
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [
+    (2, 4, 2, 64, 16),
+    (1, 8, 1, 128, 32),
+    (2, 4, 4, 32, 64),
+    (1, 6, 2, 96, 16),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_jax(rng, B, Hq, Hkv, S, D, causal):
+    """The cases of the reference's test_flash_attention_sweep: the
+    port's op (its plain version on the CPU) and its mha_ref against the
+    Pallas kernel in interpret mode and the JAX mha_ref."""
+    q = rng.normal(size=(B, Hq, S, D)).astype(np.float32)
+    k = rng.normal(size=(B, Hkv, S, D)).astype(np.float32)
+    v = rng.normal(size=(B, Hkv, S, D)).astype(np.float32)
+    want = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        bq=32, bk=32, interpret=True))
+    got = attention(_t(q), _t(k), _t(v), causal=causal, use_pallas=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        mha_ref(_t(q), _t(k), _t(v), causal=causal).numpy(),
+        np.asarray(jax_mha_ref(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal)),
+        rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_bf16_matches_jax(rng):
+    q, k, v = (rng.normal(size=(1, 2, 64, 32)).astype(np.float32)
+               for _ in range(3))
+    want = flash_attention_pallas(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        causal=True, bq=32, bk=32, interpret=True)
+    got = attention(*(_t(a).to(torch.bfloat16) for a in (q, k, v)),
+                    causal=True, use_pallas=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_chunked_attention_matches_jax(rng, causal):
+    q = rng.normal(size=(2, 4, 128, 16)).astype(np.float32)
+    k = rng.normal(size=(2, 2, 128, 16)).astype(np.float32)
+    v = rng.normal(size=(2, 2, 128, 16)).astype(np.float32)
+    got = mha_chunked_ref(_t(q), _t(k), _t(v), causal=causal, block_q=32)
+    want = jax_mha_chunked_ref(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal, block_q=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        got.numpy(), mha_ref(_t(q), _t(k), _t(v), causal=causal).numpy(),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_attention_routes_long_sequences_to_chunked(monkeypatch):
+    from repro_torch.kernels.flash_attention import ops
+    calls = []
+    monkeypatch.setattr(ops, "mha_chunked_ref",
+                        lambda *a, **kw: calls.append("chunked"))
+    monkeypatch.setattr(ops, "mha_ref", lambda *a, **kw: calls.append("ref"))
+    x = torch.zeros(1, 1, ops.CHUNKED_THRESHOLD, 16)
+    ops.attention(x, x, x)
+    ops.attention(x[:, :, :64], x[:, :, :64], x[:, :, :64], use_pallas=True)
+    assert calls == ["chunked", "ref"]
+
+
 # ----------------------------------------------------------- wrappers
+def test_plain_attention_launches_no_kernel():
+    before = flash_attention_cuda.launches
+    x = torch.zeros(1, 2, 8, 16)
+    attention(x, x, x, use_pallas=True)
+    assert flash_attention_cuda.launches == before
+
+
 def test_plain_path_launches_no_kernel(rng):
     before = (correct_cuda.launches, scale_spectrum_cuda.launches,
               backproject_cuda.launches)
@@ -196,7 +278,10 @@ def test_plain_path_launches_no_kernel(rng):
                                 torch.ones(5)),
     lambda: backproject_cuda(torch.zeros(1, 4, 8), torch.ones(4),
                              torch.zeros(4), 8),
-], ids=["correction", "spectrum_scale", "backprojection"])
+    lambda: flash_attention_cuda(torch.zeros(1, 2, 8, 16),
+                                 torch.zeros(1, 2, 8, 16),
+                                 torch.zeros(1, 2, 8, 16)),
+], ids=["correction", "spectrum_scale", "backprojection", "flash_attention"])
 def test_kernel_wrapper_refuses_cpu_tensor(call):
     """A wrapper launches its kernel or raises: never the plain version."""
     with pytest.raises(ValueError, match="CUDA tensor"):
