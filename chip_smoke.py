@@ -10,11 +10,16 @@ Phases, each fatal on failure:
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card at the main paths' shapes, with the tolerances of the
    JAX package's kernel tests; times the kernel, the plain version and,
-   where one PyTorch call computes the same function, that call.  Flash
-   attention is held at the serving shape in bf16 (rtol 1e-2, atol
-   1e-3, tighter than the JAX test's 5e-2 at S 64, where outputs are
-   larger) and over an fp32 sweep (2e-5: causal or not, groups 1, 4
-   and 48, D 64 and 128, ragged lengths);
+   where one PyTorch call computes the same function, that call (the
+   spectrum scale and ``spec * filt`` in alternating rounds).  Flash
+   attention is held at the serving shape in bf16 against ``mha_ref``
+   (rtol 1e-2, atol 1e-3, tighter than the JAX test's 5e-2 at S 64,
+   where outputs are larger) and against ``mha_tiled_ref``, which
+   repeats the bf16 kernel's tiled arithmetic (one bf16 output rounding,
+   rtol 2**-7, atol 1e-5), and over an fp32 sweep (2e-5: causal or
+   not, groups 1, 4 and 48, D 64 and 128, ragged lengths); a line gives
+   the fp32 kernel's time at the serving shape and the bf16 kernel's
+   achieved TFLOP/s;
 3. the tomography path: ``standard_chain(n_det=2560, n_angles=1801,
    n_rows=16)`` through ``PluginRunner`` on ``CudaTransport("cuda")``
    with every kernel's launch count set to 0 just before; checks that
@@ -34,8 +39,14 @@ Phases, each fatal on failure:
 6. LM parity: the granite-8b smoke model (fp32) with the kernel on the
    card against the plain version on the CPU (same weights, 5 requests
    on 2 slots: identical tokens, prefill logits within 2e-4), and at
-   full width with 2 layers in fp32 the kernel path against the plain
-   path on the card (prefill logits within 2e-4).
+   full width with 2 layers the kernel path against the plain path on
+   the card: in fp32 (prefill logits within 2e-4) and in bf16, the
+   serving dtype, where the kernel may move the logits by no more than
+   the bf16 rounding of the block outputs does (the plain bf16 path
+   against the plain path in fp32 on the same weights); a line gives
+   the distance that check reads with two planted faults in the
+   prefill's attention (the last V tile zero-filled; P rounded to bf16
+   in the kernel's tiled arithmetic), against its limit.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -51,6 +62,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -73,6 +85,12 @@ FLASH_MAIN = (1, 32, 8, 2048, 128)
 #: is typically 0.02-0.07, so a dropped or misread 64-key tile moves it by
 #: several times the atol
 FLASH_BF16_TOL = (1e-2, 1e-3)
+#: (rtol, atol) against ``mha_tiled_ref``, which repeats the bf16
+#: kernel's arithmetic: the two differ in fp32 by exp's last bits, the
+#: order of the sums and the split's 2**-18 residual (~1e-6 of an
+#: output), which can put them on two sides of one bf16 rounding of the
+#: output (at most 2**-7 of its value)
+FLASH_TILED_TOL = (2.0 ** -7, 1e-5)
 #: fp32 sweep: group sizes 1, 4 and 48 (granite-34b's MQA), D 64 and 128,
 #: lengths no 64-row tile divides
 FLASH_SWEEP = [(2, 8, 8, 512, 64), (1, 32, 8, 1000, 128),
@@ -81,6 +99,9 @@ FLASH_SWEEP = [(2, 8, 8, 512, 64), (1, 32, 8, 1000, 128),
 #: (granite-8b-code's 4K context)
 SERVE = {"arch": "granite-8b", "requests": 8, "slots": 4,
          "prompt_len": 2048, "max_new": 64, "max_len": 4096}
+#: alternating rounds of 20 timed launches each for the spectrum scale
+#: and `spec * filt`
+SPECTRUM_ROUNDS = 5
 #: decode steps under torch.profiler after the serving run
 PROFILED_STEPS = 3
 #: fp32 operations per (pixel, angle) backprojection update: the
@@ -155,15 +176,18 @@ def main() -> None:
     from repro_torch.kernels.backproject.ref import backproject_ref
     from repro_torch.kernels.correction.kernel import correct_cuda
     from repro_torch.kernels.correction.ref import correct_ref
+    from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import (mha_ref,
+                                                         mha_tiled_ref)
     from repro_torch.kernels.sino_filter.kernel import scale_spectrum_cuda
     from repro_torch.kernels.sino_filter.ops import filter_sino
     from repro_torch.kernels.sino_filter.ref import (filter_sino_ref,
                                                      make_filter,
                                                      scale_spectrum_ref)
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, transformer
     from repro_torch.models.convert import params_from_jax
     from repro_torch.tomo import (ParallelGeometry, phantom_stack,
                                   simulate_raw_scan, standard_chain)
@@ -270,15 +294,23 @@ def main() -> None:
     compare("sino filter", filter_sino(sino, filt),
             filter_sino_ref(sino, filt), 1e-5, 1e-5)
     b, by = bound_ms(spec.numel() * 8 * 2 + nf * 4, spec.numel() * 2)
+    # the kernel and `spec * filt` are within a few percent of each
+    # other: time them in alternating rounds and keep every round's median
+    rounds = {"kernel": [], "library": []}
+    for _ in range(SPECTRUM_ROUNDS):
+        rounds["kernel"].append(
+            cuda_ms(lambda: scale_spectrum_cuda(spec, filt), 20))
+        rounds["library"].append(cuda_ms(lambda: spec * filt, 20))
+    print(json.dumps({"spectrum_scale_rounds_ms": rounds}))
     rows.append({
         "name": "spectrum_scale", "route": "cuda",
         "source": f"{src}/sino_filter.cu",
         "replaces": "src/repro/kernels/sino_filter/kernel.py:26",
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: scale_spectrum_cuda(spec, filt), 20),
+        "ms": statistics.median(rounds["kernel"]),
         "plain_ms": cuda_ms(lambda: scale_spectrum_ref(spec, filt), 20),
         "bound_ms": b, "bound_by": by,
-        "library_ms": cuda_ms(lambda: spec * filt, 20)})
+        "library_ms": statistics.median(rounds["library"])})
     del sino, spec
 
     geom = ParallelGeometry(n_ang, n_det, n_rows)
@@ -323,9 +355,13 @@ def main() -> None:
                             ).to(dtype) for h in (hq, hkv, hkv)]
 
     q, k, v = qkv(FLASH_MAIN, torch.bfloat16)
-    err = compare("flash attention (bf16, serving shape)",
-                  flash_attention_cuda(q, k, v), mha_ref(q, k, v),
-                  *FLASH_BF16_TOL)
+    got = flash_attention_cuda(q, k, v)
+    err = compare("flash attention (bf16, serving shape)", got,
+                  mha_ref(q, k, v), *FLASH_BF16_TOL)
+    tiled_err = compare("flash attention (bf16, serving shape) against "
+                        "its tiled arithmetic", got, mha_tiled_ref(q, k, v),
+                        *FLASH_TILED_TOL)
+    del got
     for shape in FLASH_SWEEP:
         q32, k32, v32 = qkv(shape, torch.float32)
         for causal in (True, False):
@@ -336,8 +372,9 @@ def main() -> None:
     fb, fhq, _, fs, fd = FLASH_MAIN
     # each input read once and the output written once; causal pairs
     # (r, c <= r) cost 2D operations for q.k and 2D for p.v
+    flash_flops = 4 * fb * fhq * fd * fs * (fs + 1) / 2
     b, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
-                     4 * fb * fhq * fd * fs * (fs + 1) / 2, PEAK_BF16_FLOPS)
+                     flash_flops, PEAK_BF16_FLOPS)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows.append({
         "name": "flash_attention", "route": "cuda",
@@ -349,7 +386,14 @@ def main() -> None:
         "bound_ms": b, "bound_by": by,
         "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
                                            enable_gqa=True), 20)})
-    del q, k, v
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    f32_ms = cuda_ms(lambda: flash_attention_cuda(q32, k32, v32), 10)
+    print(json.dumps({"flash_attention": {
+        "shape": FLASH_MAIN, "bf16_ms": rows[-1]["ms"],
+        "bf16_tflops": flash_flops / rows[-1]["ms"] / 1e9,
+        "bf16_max_abs_err_vs_tiled": tiled_err,
+        "fp32_ms": f32_ms, "fp32_tflops": flash_flops / f32_ms / 1e9}}))
+    del q, k, v, q32, k32, v32
     torch.cuda.empty_cache()
 
     # -- 3. the tomography path --------------------------------------------
@@ -562,10 +606,55 @@ def main() -> None:
         params, batch, SERVE["prompt_len"])[0] for f in (True, False)]
     wide_err = compare("LM parity: full width, 2 layers, fp32, kernel vs "
                        "plain", wide[0], wide[1], 2e-4, 2e-4)
-    print(f"LM parity: smoke tokens identical over 5 requests, prefill "
-          f"logits max abs err {lm_err:.3e}; full width 2 layers "
-          f"{wide_err:.3e}")
     del params, wide
+    # bf16, the serving dtype: block weights stored in bf16; the fp32
+    # plain path upcasts the same weights at use
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    params = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(1))
+    kernel_bf16, plain_bf16, plain_fp32 = (
+        build_model(dataclasses.replace(cfg, use_flash=f, dtype=dt),
+                    dev).prefill(params, batch, SERVE["prompt_len"])[0]
+        .double()
+        for f, dt in ((True, torch.bfloat16), (False, torch.bfloat16),
+                      (False, torch.float32)))
+    rounding = float((plain_bf16 - plain_fp32).abs().max())
+    wide_bf16_err = float((kernel_bf16 - plain_bf16).abs().max())
+    if not (torch.isfinite(kernel_bf16).all() and wide_bf16_err <= rounding):
+        fail(f"LM parity: full width, 2 layers, bf16: kernel vs plain max "
+             f"abs err {wide_bf16_err:.3e} exceeds the bf16 rounding of "
+             f"the plain path ({rounding:.3e} against fp32)")
+    print(f"LM parity: smoke tokens identical over 5 requests, prefill "
+          f"logits max abs err {lm_err:.3e}; full width 2 layers fp32 "
+          f"{wide_err:.3e}; bf16 kernel vs plain {wide_bf16_err:.3e} "
+          f"(bf16 rounding, plain bf16 vs fp32: {rounding:.3e})")
+    # how strong that check is: the distance it reads with a planted
+    # fault in the prefill's attention, against the same limit
+    def v_last_tile_zeroed(q, k, v, *, causal, use_pallas):
+        """the kernel with the last 64-key V tile zero-filled, as a wrong
+        cp.async src-size would leave it"""
+        v = v.clone(memory_format=torch.contiguous_format)
+        v[:, :, -64:] = 0
+        return attention(q, k, v, causal=causal, use_pallas=use_pallas)
+
+    def p_rounded(q, k, v, *, causal, use_pallas):
+        """the kernel's tiled arithmetic with P rounded to bf16, not split"""
+        with mock.patch.object(flash_ref, "_split_p", lambda p: (
+                p.to(torch.bfloat16).float(), torch.zeros_like(p))):
+            return mha_tiled_ref(q, k, v, causal=causal)
+
+    flash_model = build_model(dataclasses.replace(cfg, use_flash=True), dev)
+    planted = {}
+    for name, fault in (("v_last_tile_zeroed", v_last_tile_zeroed),
+                        ("p_rounded", p_rounded)):
+        with mock.patch.object(transformer, "flash_attention", fault):
+            got = flash_model.prefill(params, batch, SERVE["prompt_len"])[0]
+        planted[name] = float((got.double() - plain_bf16).abs().max())
+    print(json.dumps({"bf16_check_planted_faults": {
+        "limit": rounding, "kernel": wide_bf16_err, **{
+            k: {"max_abs_err": e, "caught": e > rounding}
+            for k, e in planted.items()}}}))
+    del params, kernel_bf16, plain_bf16, plain_fp32, flash_model, got
 
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -118,13 +118,16 @@ def check(err: int, name: str) -> None:
                            f"error {err} ({msg})")
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``device``, for the launch."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device`` (a tensor's
+    device, so its index is set), for the launch: read raw, without
+    building a ``torch.cuda.Stream`` on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """A tensor's device address, for an argument declared ``c_void_p``."""
+    return t.data_ptr()
 
 
 def require(t: torch.Tensor, name: str, dtypes: tuple[torch.dtype, ...],

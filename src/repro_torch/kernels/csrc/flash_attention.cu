@@ -7,28 +7,50 @@
 //     o[b, h, r] = sum_c softmax_c(q[b, h, r] . k[b, h / G, c] / sqrt(D))
 //                  * v[b, h / G, c],   G = Hq / Hkv,  causal: c <= r
 //
-// in the reference's arithmetic order: q is scaled by 1/sqrt(D) in fp32
-// before the dot; masked scores are -1e30 (never -inf, so exp(m_prev -
-// m_new) never sees inf - inf); m, l and the accumulator are fp32; the
-// output is acc / max(l, 1e-30), rounded to the output type to nearest.
+// Masked scores are -1e30 (never -inf, so exp(m_prev - m_new) never sees
+// inf - inf); m, l and the accumulator are fp32; the output is
+// acc / max(l, 1e-30), rounded to the output type to nearest.  Both
+// kernels below share the sweep: one block per (q head, 64-row q tile,
+// batch) loops over 64-row key tiles and keeps m, l and the accumulator
+// in registers; GQA reads the kv head its q head maps to, so grouped
+// heads never repeat in memory; a causal sweep stops at the diagonal
+// tile and blocks are issued longest sweep first; ragged lengths are
+// masked (rows and columns >= S load as zero, columns >= S score -1e30,
+// rows >= S are not written), so any S is taken.
 //
 // Bound on the card: operations.  At the serving shape (B 1, Hq 32,
-// S 2048, D 128, causal) the inputs and output are 42 MB against 34 GFLOP.
-// This first design does the dots in fp32 FMAs on the CUDA cores, as the
-// reference's fp32 dots do, so it cannot pass the fp32 peak (67 TFLOP/s);
-// bf16 tensor-core products (mma.sync / wgmma) are the redesign's work.
+// S 2048, D 128, causal, bf16) the inputs and output are 42 MB against
+// 34 GFLOP, i.e. 0.035 ms at the bf16 tensor-core rate.
 //
-// Design: one block per (q head, 64-row q tile, batch) and 256 threads as
-// 16 x 16.  The key sweep is a loop inside the block; m, l and the 64 x D
-// accumulator stay in registers across it (each thread owns 4 rows and
-// D/16 columns).  The q tile is staged once, scaled and transposed, in
-// shared memory; each pass stages a 64-row K tile (transposed) and V
-// tile from the kv head that the q head maps to, so grouped heads never
-// repeat in memory.  A causal sweep stops at the diagonal tile, and
-// blocks are issued longest sweep first.  Ragged lengths are masked:
-// rows and columns >= S load as zero, columns >= S score -1e30 and rows
-// >= S are not written, so any S is taken.  The row max and sum reduce
-// over the 16 threads of a row with warp shuffles.
+// bfloat16 (flash_fwd_bf16_kernel, the serving path): both products on
+// the tensor cores with mma.sync m16n8k16 (bf16 x bf16 -> fp32).  A block
+// is 4 warps; each warp owns 16 q rows and keeps their Q fragments in
+// registers for the whole sweep.  S = Q K^T is formed from the raw bf16
+// q and k (exact products, fp32 sums) and scaled by the fp32 1/sqrt(D)
+// afterwards (the reference scales q first: one fp32 rounding apart).
+// The score accumulator's fragment is the A operand of the PV product
+// (the FA2 register reuse), so P never goes through shared memory.  P is
+// split as p_hi = bf16(p), p_lo = bf16(p - p_hi) and both halves are
+// multiplied into the same fp32 accumulator: the reference keeps P in
+// fp32, and one bf16 rounding of p (2^-9 of it) moves near-cancelling
+// outputs by more than the card check's atol of 1e-3.  l is the fp32
+// row sum of the unsplit p; the row max and sum reduce over the 4 lanes
+// that share a row.  K and V tiles arrive by cp.async (16 bytes a
+// thread, rows >= S zero-filled) into a ring of two stages, so the next
+// tile's copy is in flight while the current one computes; tiles are
+// stored with their 16-byte chunks XOR-swizzled by row, so each 8-row
+// ldmatrix phase touches all 32 banks once.  Shared memory at D 128:
+// 16 KB of Q + 2 x 32 KB of K and V = 80 KB, two blocks per SM.
+//
+// float32 (flash_fwd_f32_kernel, tests and the fp32 parity runs): the
+// dots are fp32 FMAs on the CUDA cores, as the reference's fp32 dots
+// are; TF32 tensor cores keep about three decimal digits and cannot
+// meet the fp32 tolerance.  256 threads as 16 x 16, each owning 4 rows
+// and D/16 output columns; q is scaled by 1/sqrt(D) in fp32 before the
+// dot, as in the reference; the q tile is staged once, scaled and
+// transposed, in shared memory, and each pass stages a K tile
+// (transposed) and a V tile; the row max and sum reduce over the 16
+// threads of a row with warp shuffles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -36,13 +58,16 @@ namespace {
 
 constexpr int BQ = 64;            // query rows per block
 constexpr int BK = 64;            // key rows per pass of the sweep
+constexpr float NEG_INF = -1e30f;
+
+// ---------------------------------------------------------------- fp32
+
 constexpr int TX = 16;            // threads along the columns of a tile
 constexpr int TY = 16;            // threads along the rows of a tile
 constexpr int THREADS = TX * TY;
 constexpr int RM = BQ / TY;       // query rows per thread
 constexpr int CN = BK / TX;       // score columns per thread
 constexpr int PSTRIDE = BK + 4;   // padded row of the probability tile
-constexpr float NEG_INF = -1e30f;
 static_assert(RM == 4 && CN == 4, "the score tile is read as float4");
 
 // The probability tile reuses the K tile's space when it fits (D = 128),
@@ -65,26 +90,11 @@ __device__ __forceinline__ void load4(const float* p, float* x) {
     x[3] = v.w;
 }
 
-// bfloat16 is the upper half of a float32: widening is a shift, exact.
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* x) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    x[0] = __uint_as_float(v.x << 16);
-    x[1] = __uint_as_float(v.x & 0xffff0000u);
-    x[2] = __uint_as_float(v.y << 16);
-    x[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int hq,
-                 int hkv, int s, bool causal, float scale) {
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int hq, int hkv, int s, bool causal, float scale) {
     constexpr int DV = D / 4;             // 4-wide chunks of a row
     constexpr int DN = D / TX;            // output columns per thread
     constexpr int VEC = D >= 64 ? 4 : 1;  // consecutive columns per read
@@ -105,10 +115,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int q0 = tile * BQ;
     const long long rows_q = static_cast<long long>(b * hq + h) * s;
     const long long rows_kv = static_cast<long long>(b * hkv + kvh) * s;
-    const T* qp = q + rows_q * D;
-    const T* kp = k + rows_kv * D;
-    const T* vp = v + rows_kv * D;
-    T* op = o + rows_q * D;
+    const float* qp = q + rows_q * D;
+    const float* kp = k + rows_kv * D;
+    const float* vp = v + rows_kv * D;
+    float* op = o + rows_q * D;
 
     // consecutive threads take consecutive rows: conflict-free stores
     // into the transposed tile
@@ -258,48 +268,341 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int row = q0 + ty * RM + i;
         if (row >= s) continue;
         const float den = fmaxf(l[i], 1e-30f);
-        T* orow = op + static_cast<long long>(row) * D;
+        float* orow = op + static_cast<long long>(row) * D;
 #pragma unroll
         for (int g = 0; g < DN / VEC; ++g)
 #pragma unroll
             for (int t = 0; t < VEC; ++t)
-                store(orow + g * TX * VEC + tx * VEC + t,
-                      acc[i][g * VEC + t] / den);
+                orow[g * TX * VEC + tx * VEC + t] = acc[i][g * VEC + t] / den;
     }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int hq, int hkv, int s, int causal, float scale,
-                   cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int b, int hq, int hkv, int s, int causal, float scale,
+                       cudaStream_t stream) {
     const int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (err != cudaSuccess) return err;
     const dim3 grid(hq, (s + BQ - 1) / BQ, b);
-    flash_fwd_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, s,
+    flash_fwd_f32_kernel<D><<<grid, THREADS, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, s,
         causal != 0, scale);
     return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int b, int hq, int hkv, int s, int d, int causal,
-                     float scale, cudaStream_t stream) {
-    switch (d) {
-        case 16: return launch<T, 16>(q, k, v, o, b, hq, hkv, s, causal,
-                                      scale, stream);
-        case 32: return launch<T, 32>(q, k, v, o, b, hq, hkv, s, causal,
-                                      scale, stream);
-        case 64: return launch<T, 64>(q, k, v, o, b, hq, hkv, s, causal,
-                                      scale, stream);
-        case 128: return launch<T, 128>(q, k, v, o, b, hq, hkv, s, causal,
-                                        scale, stream);
-        default: return cudaErrorInvalidValue;
+// ---------------------------------------------------------------- bf16
+
+constexpr int TC_WARPS = BQ / 16;        // each warp owns 16 q rows
+constexpr int TC_THREADS = 32 * TC_WARPS;
+
+// Element offset of (row, col) in a [64][D] bf16 tile whose 16-byte
+// chunks are XOR-swizzled: the 8 rows that one ldmatrix phase reads at
+// one logical chunk land in 8 different 16-byte bank groups.  col is a
+// multiple of 8 where an address is formed for ldmatrix or cp.async.
+template <int D>
+__device__ __forceinline__ int swz(int row, int col) {
+    constexpr int CPR = D / 8;           // 16-byte chunks per row
+    const int chunk = col >> 3;
+    int phys;
+    if constexpr (CPR >= 8)
+        phys = chunk ^ (row & 7);
+    else
+        phys = chunk ^ ((row / (8 / CPR)) & (CPR - 1));
+    return row * D + phys * 8 + (col & 7);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; src_size 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+        "{%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned bits(__nv_bfloat162 x) {
+    return *reinterpret_cast<unsigned*>(&x);
+}
+
+// (a, b) -> bf16 pairs hi = bf16(x), lo = bf16(x - hi); a in the low half
+__device__ __forceinline__ void split(float a, float b, unsigned& hi,
+                                      unsigned& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 hf = __bfloat1622float2(h);
+    hi = bits(h);
+    lo = bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+}
+
+// rows [r0, r0 + 64) of a (S, D) head into a swizzled tile; rows >= s
+// are zero-filled (their source address is row 0, never read)
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int r0,
+                                          int s) {
+    constexpr int CPR = D / 8;
+    for (int e = threadIdx.x; e < BK * CPR; e += TC_THREADS) {
+        const int r = e / CPR;
+        const int c = (e % CPR) * 8;
+        const bool ok = r0 + r < s;
+        cp_async16(dst + swz<D>(r, c),
+                   src + static_cast<long long>(ok ? r0 + r : 0) * D + c, ok);
     }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ o, int hq, int hkv, int s,
+                      bool causal, float scale) {
+    static_assert(BQ == BK, "a stage and the q tile share one layout");
+    constexpr int KD = D / 16;           // k16 steps of Q K^T
+    constexpr int ND = D / 8;            // n8 tiles of the output
+    constexpr int NS = BK / 8;           // n8 tiles of the scores
+    constexpr int TILE = BK * D;         // elements of one K or V stage
+    extern __shared__ float4 smem4[];
+    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);
+    __nv_bfloat16* ks = qs + TILE;       // [2][BK][D], swizzled
+    __nv_bfloat16* vs = ks + 2 * TILE;   // [2][BK][D], swizzled
+
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int g = lane >> 2;             // row of a fragment (and row + 8)
+    const int t4 = lane & 3;             // column pair of a fragment
+    const int h = blockIdx.x;
+    const int tile = gridDim.y - 1 - blockIdx.y;  // longest sweep first
+    const int b = blockIdx.z;
+    const int kvh = h / (hq / hkv);
+    const int q0 = tile * BQ;
+    const long long rows_q = static_cast<long long>(b * hq + h) * s;
+    const long long rows_kv = static_cast<long long>(b * hkv + kvh) * s;
+    const __nv_bfloat16* qp = q + rows_q * D;
+    const __nv_bfloat16* kp = k + rows_kv * D;
+    const __nv_bfloat16* vp = v + rows_kv * D;
+    __nv_bfloat16* op = o + rows_q * D;
+
+    // group 0: Q and the first K/V tile; group 1: the second (or none)
+    const int n_k = causal ? tile + 1 : (s + BK - 1) / BK;
+    load_tile<D>(qs, qp, q0, s);
+    load_tile<D>(ks, kp, 0, s);
+    load_tile<D>(vs, vp, 0, s);
+    cp_async_commit();
+    if (n_k > 1) {
+        load_tile<D>(ks + TILE, kp, BK, s);
+        load_tile<D>(vs + TILE, vp, BK, s);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    // this warp's 16 q rows as A fragments, one per k16 step
+    unsigned qf[KD][4];
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+        ldmatrix_x4(qf[kk], qs + swz<D>(warp * 16 + (lane & 15),
+                                        kk * 16 + (lane >> 4) * 8));
+
+    // fragment rows: e = 0, 1 -> row_a; e = 2, 3 -> row_a + 8
+    const int row_a = q0 + warp * 16 + g;
+    float acc[ND][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    float m[2] = {NEG_INF, NEG_INF};
+    float l[2] = {0.0f, 0.0f};
+
+    for (int j = 0; j < n_k; ++j) {
+        cp_async_wait<1>();              // tile j has landed
+        __syncthreads();
+        const __nv_bfloat16* kt = ks + (j & 1) * TILE;
+        const __nv_bfloat16* vt = vs + (j & 1) * TILE;
+
+        // S = Q K^T: x4 matrices (keys +0/+8) x (d +0/+8) give the B
+        // fragments of two n8 tiles of keys
+        float sc[NS][4];
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[n][e] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+            for (int np = 0; np < NS / 2; ++np) {
+                unsigned bf[4];
+                const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+                const int col = kk * 16 + (((lane >> 3) & 1) << 3);
+                ldmatrix_x4(bf, kt + swz<D>(key, col));
+                mma_bf16(sc[2 * np], qf[kk], bf[0], bf[1]);
+                mma_bf16(sc[2 * np + 1], qf[kk], bf[2], bf[3]);
+            }
+        }
+
+        // scale on the fp32 scores; mask the diagonal and ragged tiles
+        const int k0 = j * BK;
+        const bool edge = (causal && k0 + BK - 1 > q0) || k0 + BK > s;
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                sc[n][e] *= scale;
+                if (edge) {
+                    const int col = k0 + n * 8 + t4 * 2 + (e & 1);
+                    const int row = row_a + (e >> 1) * 8;
+                    if (col >= s || (causal && col > row)) sc[n][e] = NEG_INF;
+                }
+            }
+
+        // online softmax over the 4 lanes that share a row
+        float alpha[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            float mx = sc[0][2 * i];
+#pragma unroll
+            for (int n = 0; n < NS; ++n)
+                mx = fmaxf(mx, fmaxf(sc[n][2 * i], sc[n][2 * i + 1]));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            const float m_new = fmaxf(m[i], mx);
+            float sum = 0.0f;
+#pragma unroll
+            for (int n = 0; n < NS; ++n) {
+                sc[n][2 * i] = expf(sc[n][2 * i] - m_new);
+                sc[n][2 * i + 1] = expf(sc[n][2 * i + 1] - m_new);
+                sum += sc[n][2 * i] + sc[n][2 * i + 1];
+            }
+            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            alpha[i] = expf(m[i] - m_new);
+            l[i] = l[i] * alpha[i] + sum;
+            m[i] = m_new;
+        }
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+            acc[n][0] *= alpha[0];
+            acc[n][1] *= alpha[0];
+            acc[n][2] *= alpha[1];
+            acc[n][3] *= alpha[1];
+        }
+
+        // acc += (P_hi + P_lo) V: score tiles 2kk, 2kk + 1 are the A
+        // fragment of key step kk; x4.trans matrices (keys +0/+8) x
+        // (d +0/+8) give the B fragments of two n8 tiles of d
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+            unsigned ph[4], pl[4];
+            split(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+            split(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+            split(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+            split(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+            for (int dp = 0; dp < ND / 2; ++dp) {
+                unsigned bf[4];
+                const int key = kk * 16 + (lane & 7) +
+                                (((lane >> 3) & 1) << 3);
+                const int col = dp * 16 + ((lane >> 4) << 3);
+                ldmatrix_x4_trans(bf, vt + swz<D>(key, col));
+                mma_bf16(acc[2 * dp], ph, bf[0], bf[1]);
+                mma_bf16(acc[2 * dp], pl, bf[0], bf[1]);
+                mma_bf16(acc[2 * dp + 1], ph, bf[2], bf[3]);
+                mma_bf16(acc[2 * dp + 1], pl, bf[2], bf[3]);
+            }
+        }
+
+        __syncthreads();                 // every warp is done with stage
+        if (j + 2 < n_k) {
+            load_tile<D>(ks + (j & 1) * TILE, kp, (j + 2) * BK, s);
+            load_tile<D>(vs + (j & 1) * TILE, vp, (j + 2) * BK, s);
+        }
+        cp_async_commit();               // empty past the end: keeps the
+    }                                    // wait count uniform
+    cp_async_wait<0>();
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int row = row_a + i * 8;
+        if (row >= s) continue;
+        const float den = fmaxf(l[i], 1e-30f);
+        __nv_bfloat16* orow = op + static_cast<long long>(row) * D + t4 * 2;
+#pragma unroll
+        for (int n = 0; n < ND; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+                __floats2bfloat162_rn(acc[n][2 * i] / den,
+                                      acc[n][2 * i + 1] / den);
+    }
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int b, int hq, int hkv, int s, int causal,
+                        float scale, cudaStream_t stream) {
+    // the q tile and two stages each of K and V
+    const int bytes = 5 * BK * D * static_cast<int>(sizeof(__nv_bfloat16));
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_bf16_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(hq, (s + BQ - 1) / BQ, b);
+    flash_fwd_bf16_kernel<D><<<grid, TC_THREADS, bytes, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(o), hq, hkv, s, causal != 0, scale);
+    return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int b, int hq, int hkv, int s, int causal, int bf16,
+                   float scale, cudaStream_t stream) {
+    return bf16 ? launch_bf16<D>(q, k, v, o, b, hq, hkv, s, causal, scale,
+                                 stream)
+                : launch_f32<D>(q, k, v, o, b, hq, hkv, s, causal, scale,
+                                stream);
 }
 
 }  // namespace
@@ -309,10 +612,17 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int causal, int bf16, float scale,
                                void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const cudaError_t err =
-        bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, b, hq, hkv, s, d, causal,
-                                       scale, st)
-             : dispatch<float>(q, k, v, o, b, hq, hkv, s, d, causal, scale,
-                               st);
+    cudaError_t err;
+    switch (d) {
+        case 16: err = launch<16>(q, k, v, o, b, hq, hkv, s, causal, bf16,
+                                  scale, st); break;
+        case 32: err = launch<32>(q, k, v, o, b, hq, hkv, s, causal, bf16,
+                                  scale, st); break;
+        case 64: err = launch<64>(q, k, v, o, b, hq, hkv, s, causal, bf16,
+                                  scale, st); break;
+        case 128: err = launch<128>(q, k, v, o, b, hq, hkv, s, causal, bf16,
+                                    scale, st); break;
+        default: err = cudaErrorInvalidValue;
+    }
     return static_cast<int>(err);
 }

@@ -20,6 +20,9 @@ def scale_spectrum_cuda(spec: torch.Tensor, filt: torch.Tensor
     rows, nf = spec.shape
     build.require(filt, "scale_spectrum filt", (torch.float32,), (nf,),
                   spec.device)
+    if spec.numel() >= 2**31:
+        raise ValueError(f"scale_spectrum: {spec.numel()} bins, the kernel "
+                         f"indexes bins in 32 bits (< 2**31)")
     out = torch.empty_like(spec)
     if spec.numel() == 0:
         return out

@@ -77,9 +77,10 @@ def attention_fwd(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               n_layers: int | None = None,
-               device: torch.device | str = "cpu") -> KVCache:
-    """Stacked-over-layers KV cache (leading dim = layers)."""
+               n_layers: int | None = None, *,
+               device: torch.device | str) -> KVCache:
+    """Stacked-over-layers KV cache (leading dim = layers) on ``device``,
+    which the caller always names."""
     L = n_layers or cfg.n_layers
     shape = (L, batch, cfg.n_kv_heads, max_len, cfg.hd)
     return KVCache(torch.zeros(shape, dtype=cfg.dtype, device=device),

@@ -15,7 +15,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import CudaTransport, PluginRunner
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.kernels.flash_attention.ref import mha_ref, mha_tiled_ref
 from repro_torch.kernels.backproject.kernel import backproject_cuda
 from repro_torch.kernels.backproject.ops import backproject
 from repro_torch.kernels.backproject.ref import backproject_ref
@@ -24,7 +24,8 @@ from repro_torch.kernels.correction.ops import correct
 from repro_torch.kernels.correction.ref import correct_ref
 from repro_torch.kernels.sino_filter.kernel import scale_spectrum_cuda
 from repro_torch.kernels.sino_filter.ops import filter_sino
-from repro_torch.kernels.sino_filter.ref import filter_sino_ref, make_filter
+from repro_torch.kernels.sino_filter.ref import (filter_sino_ref, make_filter,
+                                                 scale_spectrum_ref)
 from repro_torch.models import build_model
 from repro_torch.tomo import (ParallelGeometry, phantom_stack,
                               simulate_raw_scan, standard_chain)
@@ -68,6 +69,25 @@ def test_sino_filter_kernel_on_card(cuda, rng):
     np.testing.assert_allclose(got.cpu().numpy(),
                                filter_sino_ref(sino, filt).numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,nf,offset", [
+    (3, 7, 0),          # 21 bins: odd, a scalar tail after the float4s
+    (31, 4097, 0),      # the main path's row length: float4s across rows
+    (64, 4097, 0),      # an even bin count
+    (5, 513, 1),        # one bin into an allocation: not 16-byte aligned
+], ids=["odd", "nf4097_odd", "nf4097_even", "unaligned"])
+def test_spectrum_scale_kernel_on_card(cuda, rng, rows, nf, offset):
+    flat = _t(rng.normal(size=(rows * nf + offset, 2)).astype(np.float32))
+    spec = torch.view_as_complex(flat.to(cuda))[offset:].view(rows, nf)
+    filt = _t(rng.uniform(0, 1, size=nf).astype(np.float32)).to(cuda)
+    n = scale_spectrum_cuda.launches
+    got = scale_spectrum_cuda(spec, filt)
+    assert scale_spectrum_cuda.launches == n + 1
+    np.testing.assert_allclose(
+        torch.view_as_real(got).cpu().numpy(),
+        torch.view_as_real(scale_spectrum_ref(spec, filt)).cpu().numpy(),
+        rtol=1e-5, atol=1e-5)
 
 
 def test_backproject_kernel_on_card(cuda, rng):
@@ -115,6 +135,31 @@ def test_flash_attention_kernel_on_card(cuda, rng, B, Hq, Hkv, S, D, causal):
     np.testing.assert_allclose(got.cpu().numpy(),
                                mha_ref(q, k, v, causal=causal).cpu().numpy(),
                                rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", FLASH_CASES)
+def test_flash_attention_tensor_core_kernel_on_card(cuda, rng, B, Hq, Hkv, S,
+                                                    D, causal):
+    """The bf16 tensor-core kernel against ``mha_ref`` at the card
+    check's tolerance, and against ``mha_tiled_ref``, which repeats its
+    arithmetic: there the two differ in fp32 only by exp's last bits, the
+    order of the sums and the P split's 2**-18 residual (~1e-6 of an
+    output), which can put them on two sides of one bf16 rounding of the
+    output (at most 2**-7 of its value)."""
+    q, k, v = (_t(rng.normal(size=(B, h, S, D))).to(cuda, torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    n = flash_attention_cuda.launches
+    got = attention(q, k, v, causal=causal, use_pallas=True)
+    assert flash_attention_cuda.launches == n + 1
+    assert got.dtype == torch.bfloat16
+    got = got.float().cpu().numpy()
+    np.testing.assert_allclose(
+        got, mha_ref(q, k, v, causal=causal).float().cpu().numpy(),
+        rtol=1e-2, atol=1e-3)
+    np.testing.assert_allclose(
+        got, mha_tiled_ref(q, k, v, causal=causal).float().cpu().numpy(),
+        rtol=2.0 ** -7, atol=1e-5)
 
 
 def test_flash_attention_kernel_bf16_on_card(cuda, rng):

@@ -29,9 +29,11 @@ from repro_torch.kernels.backproject.ops import backproject
 from repro_torch.kernels.correction.kernel import correct_cuda
 from repro_torch.kernels.correction.ops import correct
 from repro_torch.kernels.correction.ref import correct_ref
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.kernels.flash_attention.ref import mha_chunked_ref, mha_ref
+from repro_torch.kernels.flash_attention.ref import (mha_chunked_ref, mha_ref,
+                                                     mha_tiled_ref)
 from repro_torch.kernels.sino_filter.kernel import scale_spectrum_cuda
 from repro_torch.kernels.sino_filter.ops import filter_sino
 from repro_torch.kernels.sino_filter.ref import (filter_sino_ref, make_filter,
@@ -223,6 +225,74 @@ def test_flash_attention_bf16_matches_jax(rng):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [
+    (2, 4, 2, 64, 16),
+    (1, 8, 1, 128, 32),
+    (2, 4, 4, 32, 64),
+    (1, 6, 2, 96, 16),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tiled_ref_matches_jax_kernel_bf16(rng, B, Hq, Hkv, S, D, causal):
+    """The bf16 kernel's arithmetic (64-key tiles, scale on the scores,
+    P split into bf16 hi + lo) against the Pallas kernel in interpret
+    mode on the reference's sweep shapes in bf16, at the reference's
+    bf16 tolerance."""
+    q = rng.normal(size=(B, Hq, S, D)).astype(np.float32)
+    k = rng.normal(size=(B, Hkv, S, D)).astype(np.float32)
+    v = rng.normal(size=(B, Hkv, S, D)).astype(np.float32)
+    want = flash_attention_pallas(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        causal=causal, bq=32, bk=32, interpret=True)
+    got = mha_tiled_ref(*(_t(a).to(torch.bfloat16) for a in (q, k, v)),
+                        causal=causal)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=5e-2, atol=5e-2)
+
+
+#: P fed to the PV product in place of the kernel's split (the first part
+#: into the fp32 accumulator, the second a zero): the reference's fp32 P,
+#: and P rounded to bf16 as FlashAttention-2/3 feed it
+P_TREATMENTS = {
+    "fp32": lambda p: (p, torch.zeros_like(p)),
+    "rounded": lambda p: (p.to(torch.bfloat16).float(), torch.zeros_like(p)),
+}
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,causal,p", [
+    (1, 8, 2, 2048, 128, True, "split"),
+    (2, 4, 2, 77, 64, False, "split"),
+    (1, 48, 1, 200, 128, True, "split"),
+    (1, 8, 2, 2048, 128, True, "fp32"),
+    (1, 8, 2, 2048, 128, True, "rounded"),
+], ids=["serving_width", "ragged", "mqa", "serving_width_p_fp32",
+        "serving_width_p_rounded"])
+def test_tiled_ref_matches_mha_ref_at_card_tolerance(rng, monkeypatch, B, Hq,
+                                                     Hkv, S, D, causal, p):
+    """The card check's tolerance (rtol 1e-2, atol 1e-3) held on the CPU:
+    with P split (the kernel's) or in fp32 every output is inside it;
+    with P rounded to bf16, near-cancelling outputs at S 2048 fall
+    outside.  ``pytest -rP`` shows each case's error."""
+    if p != "split":
+        monkeypatch.setattr(flash_ref, "_split_p", P_TREATMENTS[p])
+    q, k, v = (_t(rng.normal(size=(B, h, S, D)).astype(np.float32))
+               .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    got = mha_tiled_ref(q, k, v, causal=causal).double().numpy()
+    want = mha_ref(q, k, v, causal=causal).double().numpy()
+    err = np.abs(got - want)
+    outside = int((err > 1e-3 + 1e-2 * np.abs(want)).sum())
+    print(f"P {p}: max abs err {err.max():.5f}, {outside} of {err.size} "
+          f"outside rtol 1e-2 / atol 1e-3")
+    assert (outside > 0) == (p == "rounded"), (p, outside, err.max())
+
+
+def test_tiled_ref_takes_bf16_only():
+    x = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mha_tiled_ref(x, x, x)
 
 
 @pytest.mark.parametrize("causal", [True, False])

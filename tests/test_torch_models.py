@@ -252,6 +252,18 @@ def test_bf16_weights_stored_once_in_compute_dtype():
     assert not any(p.requires_grad for p in params.parameters())
 
 
+def test_kv_cache_device_is_named_by_the_caller():
+    from repro_torch.models.attention import init_cache
+    cfg = get_config("granite-8b", smoke=True)
+    with pytest.raises(TypeError, match="device"):
+        init_cache(cfg, 2, 16)
+    cache = init_cache(cfg, 2, 16, device="cpu")
+    assert cache.k.shape == (cfg.n_layers, 2, cfg.n_kv_heads, 16, cfg.hd)
+    assert cache.k.device.type == "cpu" and cache.length == 0
+    model_cache = build_model(cfg, device="cpu").init_cache(2, 16)
+    assert model_cache["k"].device.type == "cpu"
+
+
 def test_cross_entropy_matches_jax(rng):
     from repro.models import cross_entropy as jax_cross_entropy
     logits = rng.normal(size=(2, 5, 11)).astype(np.float32)
