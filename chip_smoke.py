@@ -19,7 +19,14 @@ Phases, each fatal on failure:
    rtol 2**-7, atol 1e-5), and over an fp32 sweep (2e-5: causal or
    not, groups 1, 4 and 48, D 64 and 128, ragged lengths); a line gives
    the fp32 kernel's time at the serving shape and the bf16 kernel's
-   achieved TFLOP/s;
+   achieved TFLOP/s.  Backprojection is also held, on four full image
+   rows, against ``backproject_tiled_ref``, which repeats its arithmetic
+   (rtol 1e-5, atol 1e-6); a line gives its work (positions once per
+   (pixel, angle), lerps per slice), its bound beside the earlier
+   count's and its achieved G updates/s; another gives its time at the
+   main geometry for 1 to 16 slices through the entry point and with
+   each group size of slices a block may own, which must all give the
+   entry point's output bit for bit;
 3. the tomography path: ``standard_chain(n_det=2560, n_angles=1801,
    n_rows=16)`` through ``PluginRunner`` on ``CudaTransport("cuda")``
    with every kernel's launch count set to 0 just before; checks that
@@ -52,9 +59,14 @@ The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/repro_torch`` beside this file, it
 exits non-zero and prints no result.
+
+``python3 chip_smoke.py --bp-slices`` runs phase 1 and the backprojection
+slice sweep alone.  Copied into a checkout whose kernel library has no
+``backproject_group``, it times that checkout's entry point alone.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import statistics
@@ -104,10 +116,25 @@ SERVE = {"arch": "granite-8b", "requests": 8, "slots": 4,
 SPECTRUM_ROUNDS = 5
 #: decode steps under torch.profiler after the serving run
 PROFILED_STEPS = 3
-#: fp32 operations per (pixel, angle) backprojection update: the
-#: position step (1), the fraction (1), the lerp a + f(b - a) (3, the
-#: multiply-add counted as 2) and the accumulation (1)
-BP_FLOPS_PER_UPDATE = 6
+#: least fp32 work of backprojection: all slices share the geometry, so
+#: the position step and the fraction (2) count once per (pixel, angle)
+#: whose ray lands on the detector, and the lerp a + f(b - a) (3, the
+#: multiply-add counted as 2) and the accumulation (1) once per slice
+BP_FLOPS_PER_PAIR = 2
+BP_FLOPS_PER_UPDATE = 4
+#: the earlier count, all 6 per slice, printed beside the new bound
+BP_FLOPS_PER_UPDATE_EARLIER = 6
+#: image rows at which the backprojection kernel is held against its own
+#: arithmetic (``backproject_tiled_ref``): the edges and the centre
+BP_TILED_ROWS = [0, 5, 1280, 2555]
+#: (rtol, atol) there: the two differ only where the float64 emulation of
+#: an FMA rounds twice; the position contracted into an FMA moves pixels
+#: by up to ~2e-5 at this geometry (tests/test_torch_kernels.py)
+BP_TILED_TOL = (1e-5, 1e-6)
+#: slice counts of the backprojection sweep (main geometry otherwise),
+#: and the group sizes of slices a block of the kernel may own
+BP_SWEEP_SLICES = (1, 2, 3, 4, 6, 8, 12, 16)
+BP_GROUPS = (1, 2, 4, 8)
 
 
 def fail(msg: str) -> None:
@@ -122,6 +149,78 @@ def bound_ms(n_bytes: float, flops: float,
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Median device time of ``fn`` in ms, by CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bp_slice_sweep() -> dict:
+    """Backprojection at the main geometry for each slice count of
+    ``BP_SWEEP_SLICES``: ms through the entry point (``backproject_cuda``)
+    and, where the kernel library has ``backproject_group``, with each
+    group size of ``BP_GROUPS``, whose outputs must equal the entry
+    point's bit for bit (each slice's sum is the same arithmetic)."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.backproject.kernel import backproject_cuda
+    from repro_torch.tomo import ParallelGeometry
+
+    n_det, n_ang = MAIN["n_det"], MAIN["n_angles"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sino_all = torch.randn((max(BP_SWEEP_SLICES), n_ang, n_det),
+                           generator=gen, device=dev)
+    angles = torch.from_numpy(ParallelGeometry(n_ang, n_det, 1).angles
+                              .astype(np.float32)).to(dev)
+    cos_t, sin_t = torch.cos(angles), torch.sin(angles)
+    scale = float(np.float32(np.pi / n_ang))
+    centre = (n_det - 1) / 2.0
+    groups = (BP_GROUPS if hasattr(build.library(), "backproject_group")
+              else ())
+    if groups:
+        group_fn = build.function(
+            "backproject_group", (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
+            + (ctypes.c_float, ctypes.c_float, ctypes.c_int,
+               ctypes.c_void_p))
+    result = {}
+    for n_sl in BP_SWEEP_SLICES:
+        sino = sino_all[:n_sl]
+        want = backproject_cuda(sino, cos_t, sin_t, n_det)
+        ms = {"entry": cuda_ms(
+            lambda: backproject_cuda(sino, cos_t, sin_t, n_det), 3)}
+        out = torch.empty_like(want)
+        for g in groups:
+            def launch(g=g):
+                build.check(group_fn(
+                    build.ptr(sino), build.ptr(cos_t), build.ptr(sin_t),
+                    build.ptr(out), n_sl, n_ang, n_det, n_det, centre,
+                    scale, g, build.stream(sino.device)),
+                    "backproject_group")
+            out.fill_(float("nan"))
+            launch()
+            if not torch.equal(out, want):
+                fail(f"backprojection: groups of {g} differ from the entry "
+                     f"point at {n_sl} slices")
+            ms[f"group_{g}"] = cuda_ms(launch, 3)
+        result[n_sl] = ms
+    return result
 
 
 def jax_layout_params(cfg, rng) -> dict:
@@ -153,6 +252,11 @@ def jax_layout_params(cfg, rng) -> dict:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--bp-slices", action="store_true",
+                        help="phase 1 and the backprojection slice sweep "
+                             "alone")
+    args = parser.parse_args()
     try:
         import torch
         from torch.autograd import DeviceType
@@ -168,12 +272,37 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.configs import get_config
-    from repro_torch.core import CudaTransport, PluginRunner
     from repro_torch.device import probe
     from repro_torch.kernels import build
+
+    # -- 1. environment -------------------------------------------------
+    info = probe()
+    print(f"torch {info['torch']}  CUDA {info['cuda_version']}  "
+          f"nvcc {info['nvcc']}  capability {info['capability']}")
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        fail(f"nvidia-smi: {e}")
+    print(smi)
+    t0 = time.perf_counter()
+    build.library()
+    build_s = time.perf_counter() - t0
+    print(f"kernel build {build_s:.2f} s")
+    log = build.BUILD_DIR / "build.log"
+    if log.exists():
+        print(log.read_text().strip())
+    if args.bp_slices:
+        print(json.dumps({"backprojection_slices_ms": bp_slice_sweep()}))
+        return
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import CudaTransport, PluginRunner
     from repro_torch.kernels.backproject.kernel import backproject_cuda
-    from repro_torch.kernels.backproject.ref import backproject_ref
+    from repro_torch.kernels.backproject.ref import (backproject_ref,
+                                                     backproject_tiled_ref)
     from repro_torch.kernels.correction.kernel import correct_cuda
     from repro_torch.kernels.correction.ref import correct_ref
     from repro_torch.kernels.flash_attention import ref as flash_ref
@@ -196,22 +325,6 @@ def main() -> None:
 
     dev = torch.device("cuda")
 
-    def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-        """Median device time of ``fn`` in ms, by CUDA events."""
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
     def compare(name, got, want, rtol, atol) -> float:
         got, want = got.double(), want.double()
         err = (got - want).abs()
@@ -223,26 +336,6 @@ def main() -> None:
                  f"(max abs err {float(err.max()):.3e}, rtol {rtol}, "
                  f"atol {atol})")
         return float(err.max())
-
-    # -- 1. environment -------------------------------------------------
-    info = probe()
-    print(f"torch {info['torch']}  CUDA {info['cuda_version']}  "
-          f"nvcc {info['nvcc']}  capability {info['capability']}")
-    try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError) as e:
-        fail(f"nvidia-smi: {e}")
-    print(smi)
-    t0 = time.perf_counter()
-    build.library()
-    build_s = time.perf_counter() - t0
-    print(f"kernel build {build_s:.2f} s")
-    log = build.BUILD_DIR / "build.log"
-    if log.exists():
-        print(log.read_text().strip())
 
     # -- 2. kernels against their plain versions --------------------------
     rows = []
@@ -318,10 +411,15 @@ def main() -> None:
     angles = torch.from_numpy(geom.angles.astype(np.float32)).to(dev)
     cos_t, sin_t = torch.cos(angles), torch.sin(angles)
     plain = backproject_ref(sino, angles, n_det)
-    err = compare("backprojection",
-                  backproject_cuda(sino, cos_t, sin_t, n_det), plain,
-                  2e-4, 2e-5)
+    got = backproject_cuda(sino, cos_t, sin_t, n_det)
+    err = compare("backprojection", got, plain, 2e-4, 2e-5)
     del plain
+    tiled_err = compare(
+        "backprojection against its own arithmetic (rows "
+        f"{BP_TILED_ROWS})", got[:, BP_TILED_ROWS],
+        backproject_tiled_ref(sino, angles, n_det, rows=BP_TILED_ROWS),
+        *BP_TILED_TOL)
+    del got
     # (pixel, angle) pairs whose ray lands on the detector, t in (-1, D);
     # out_size == n_det, so the image centre c is also the detector centre
     c = (n_det - 1) / 2.0
@@ -333,8 +431,9 @@ def main() -> None:
         inside += int(((t > -1.0) & (t < n_det)).sum())
     del t
     updates = inside * n_rows
-    b, by = bound_ms(sino.numel() * 4 + n_rows * n_det * n_det * 4
-                     + 2 * n_ang * 4, updates * BP_FLOPS_PER_UPDATE)
+    bp_bytes = sino.numel() * 4 + n_rows * n_det * n_det * 4 + 2 * n_ang * 4
+    bp_flops = inside * BP_FLOPS_PER_PAIR + updates * BP_FLOPS_PER_UPDATE
+    b, by = bound_ms(bp_bytes, bp_flops)
     rows.append({
         "name": "backprojection", "route": "cuda",
         "source": f"{src}/backproject.cu",
@@ -345,9 +444,16 @@ def main() -> None:
         "plain_ms": cuda_ms(lambda: backproject_ref(sino, angles, n_det),
                             2, warmup=0),
         "bound_ms": b, "bound_by": by, "library_ms": None})
-    print(f"backprojection updates in this run: {updates} "
-          f"({BP_FLOPS_PER_UPDATE} fp32 operations each)")
+    print(json.dumps({"backprojection": {
+        "pairs_on_detector": inside, "updates": updates, "flops": bp_flops,
+        "bound_ms": b,
+        "bound_ms_earlier_count": bound_ms(
+            bp_bytes, updates * BP_FLOPS_PER_UPDATE_EARLIER)[0],
+        "ms": rows[-1]["ms"],
+        "g_updates_per_s": updates / rows[-1]["ms"] / 1e6,
+        "max_abs_err_vs_tiled": tiled_err}}))
     del sino
+    print(json.dumps({"backprojection_slices_ms": bp_slice_sweep()}))
 
     def qkv(shape, dtype):
         b_, hq, hkv, s_, d_ = shape

@@ -25,13 +25,19 @@ def backproject_cuda(sino: torch.Tensor, cos_t: torch.Tensor,
                   sino.device)
     build.require(sin_t, "backproject sin", (torch.float32,), (n_angles,),
                   sino.device)
-    if n_sl > 65535:
+    if -(-n_sl // 4) > 65535:
         raise ValueError(f"backproject: {n_sl} slices exceed one launch's "
-                         f"grid (65535)")
+                         f"grid (65535 groups of at most 4)")
     if n_angles == 0:
         raise ValueError("backproject: no angles")
     if centre is None:
         centre = (n_det - 1) / 2.0
+    # the staged window's slack holds while t's rounding error stays far
+    # below a bin
+    reach = (out_size - 1) / 2 * math.sqrt(2) + abs(centre)
+    if reach >= 2**17:
+        raise ValueError(f"backproject: positions up to |t| = {reach:.0f} "
+                         f"exceed the kernel's range (2**17)")
     out = torch.empty((n_sl, out_size, out_size), dtype=torch.float32,
                       device=sino.device)
     if out.numel() == 0:

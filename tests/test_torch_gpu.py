@@ -18,7 +18,8 @@ from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.flash_attention.ref import mha_ref, mha_tiled_ref
 from repro_torch.kernels.backproject.kernel import backproject_cuda
 from repro_torch.kernels.backproject.ops import backproject
-from repro_torch.kernels.backproject.ref import backproject_ref
+from repro_torch.kernels.backproject.ref import (backproject_ref,
+                                                 backproject_tiled_ref)
 from repro_torch.kernels.correction.kernel import correct_cuda
 from repro_torch.kernels.correction.ops import correct
 from repro_torch.kernels.correction.ref import correct_ref
@@ -46,18 +47,32 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def test_correction_kernel_on_card(cuda, rng):
-    for dtype in (np.uint16, np.float32):
-        raw = _t(rng.integers(50, 40000, size=(5, 33, 64)).astype(dtype))
-        dark = _t(rng.integers(80, 120, size=(33, 64)).astype(np.float32))
-        flat = _t(rng.integers(30000, 42000, size=(33, 64))
-                  .astype(np.float32))
-        n = correct_cuda.launches
-        got = correct(raw.to(cuda), dark.to(cuda), flat.to(cuda))
-        assert correct_cuda.launches == n + 1
-        np.testing.assert_allclose(got.cpu().numpy(),
-                                   correct_ref(raw, dark, flat).numpy(),
-                                   rtol=1e-6, atol=1e-6)
+# (F, Y, X, offset): frame counts no run of 4 divides, a plane no 8
+# pixels divide, raw views 1 and 3 elements into their allocation (not
+# 16-byte aligned)
+CORRECTION_CASES = [(5, 33, 64, 0), (13, 16, 64, 0), (9, 5, 7, 0),
+                    (4, 16, 64, 1), (17, 33, 64, 3)]
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+@pytest.mark.parametrize("F,Y,X,offset", CORRECTION_CASES,
+                         ids=["aligned", "ragged_frames", "ragged_plane",
+                              "offset_1", "offset_3"])
+def test_correction_kernel_on_card(cuda, rng, dtype, F, Y, X, offset):
+    """Both paths of the kernel (16-byte and scalar) with dead pixels
+    (flat == dark) and raw below dark, at the reference's 1e-6."""
+    raw = _t(rng.integers(0, 40000, size=F * Y * X + offset).astype(dtype))
+    raw = raw.to(cuda)[offset:].view(F, Y, X)
+    dark = _t(rng.integers(80, 120, size=(Y, X)).astype(np.float32))
+    flat = _t(rng.integers(30000, 42000, size=(Y, X)).astype(np.float32))
+    flat.view(-1)[::5] = dark.view(-1)[::5]
+    n = correct_cuda.launches
+    got = correct(raw, dark.to(cuda), flat.to(cuda))
+    assert correct_cuda.launches == n + 1
+    got = got.cpu().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, correct_ref(raw.cpu(), dark, flat).numpy(),
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_sino_filter_kernel_on_card(cuda, rng):
@@ -90,18 +105,62 @@ def test_spectrum_scale_kernel_on_card(cuda, rng, rows, nf, offset):
         rtol=1e-5, atol=1e-5)
 
 
-def test_backproject_kernel_on_card(cuda, rng):
-    """Ragged sizes (no tile divides 27, 17 angles) and an off-centre
-    rotation axis."""
-    sino = _t(rng.normal(size=(3, 17, 30)).astype(np.float32))
-    angles = torch.linspace(0, np.pi, 18)[:-1]
+# (S, A, D, N, centre): slice counts for which the entry point picks
+# each group size (1, 3, 5, 9, 16 and 17 take groups of 1, 4, 2, 2, 8 and
+# 4), most of them ragged, N != D, centre offsets, angle counts
+# that 16-angle chunks do not divide, tiles whose rays miss the detector
+BP_CASES = [(3, 17, 30, 27, 15.25), (1, 33, 64, 80, None),
+            (5, 50, 96, 64, 40.0), (9, 16, 40, 40, None),
+            (17, 45, 64, 48, 30.5), (16, 181, 256, 256, None)]
+
+
+@pytest.mark.parametrize("S,A,D,N,centre", BP_CASES)
+def test_backproject_kernel_on_card(cuda, rng, S, A, D, N, centre):
+    """The kernel against the plain version at the reference's
+    tolerance, and against its own arithmetic (``backproject_tiled_ref``
+    on the card, the same cos/sin): there the two differ only where the
+    float64 emulation of an FMA rounds twice."""
+    sino = _t(rng.normal(size=(S, A, D)).astype(np.float32))
+    angles = torch.linspace(0, np.pi, A + 1)[:-1]
     n = backproject_cuda.launches
-    got = backproject(sino.to(cuda), angles, 27, centre=15.25)
+    got = backproject(sino.to(cuda), angles, N, centre=centre)
     assert backproject_cuda.launches == n + 1
+    assert got.shape == (S, N, N)
+    np.testing.assert_allclose(
+        got.cpu().numpy(), backproject_ref(sino, angles, N, centre).numpy(),
+        rtol=2e-4, atol=2e-5)
     np.testing.assert_allclose(
         got.cpu().numpy(),
-        backproject_ref(sino, angles, 27, centre=15.25).numpy(),
-        rtol=2e-4, atol=2e-5)
+        backproject_tiled_ref(sino.to(cuda), angles.to(cuda), N,
+                              centre).cpu().numpy(),
+        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("S,A,D,N,centre", [BP_CASES[0], BP_CASES[2]])
+def test_backproject_group_sizes_on_card(cuda, rng, group, S, A, D, N,
+                                         centre):
+    """Each group size of slices a block may own, launched through
+    ``backproject_group``, gives the entry point's output bit for bit
+    (every slice's sum is the same arithmetic) on ragged shapes."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    sino = _t(rng.normal(size=(S, A, D)).astype(np.float32)).to(cuda)
+    angles = torch.linspace(0, np.pi, A + 1)[:-1].to(cuda)
+    cos_t, sin_t = torch.cos(angles), torch.sin(angles)
+    want = backproject_cuda(sino, cos_t, sin_t, N, centre)
+    got = torch.full_like(want, float("nan"))
+    fn = build.function("backproject_group", (ctypes.c_void_p,) * 4 + (
+        ctypes.c_int,) * 4 + (ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                              ctypes.c_void_p))
+    build.check(fn(build.ptr(sino), build.ptr(cos_t), build.ptr(sin_t),
+                   build.ptr(got), S, A, D, N,
+                   (D - 1) / 2.0 if centre is None else centre,
+                   float(np.float32(np.pi / A)), group,
+                   build.stream(sino.device)),
+                "backproject_group")
+    assert torch.equal(got, want)
 
 
 def test_chain_on_card_matches_cpu(cuda):
