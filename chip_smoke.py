@@ -11,7 +11,9 @@ Phases, each fatal on failure:
    on the card at the main paths' shapes, with the tolerances of the
    JAX package's kernel tests; times the kernel, the plain version and,
    where one PyTorch call computes the same function, that call (the
-   spectrum scale and ``spec * filt`` in alternating rounds).  Flash
+   spectrum scale and ``spec * filt`` in alternating rounds);
+   correction also as one launch for a gang at the gang's shape (each
+   member equal to a launch for it alone, bit for bit).  Flash
    attention is held at the serving shape in bf16 against ``mha_ref``
    (rtol 1e-2, atol 1e-3, tighter than the JAX test's 5e-2 at S 64,
    where outputs are larger) and against ``mha_tiled_ref``, which
@@ -22,16 +24,35 @@ Phases, each fatal on failure:
    achieved TFLOP/s.  Backprojection is also held, on four full image
    rows, against ``backproject_tiled_ref``, which repeats its arithmetic
    (rtol 1e-5, atol 1e-6); a line gives its work (positions once per
-   (pixel, angle), lerps per slice), its bound beside the earlier
-   count's and its achieved G updates/s; another gives its time at the
+   (pixel, angle), lerps per slice), its bound and its achieved G
+   updates/s; another gives its time at the
    main geometry for 1 to 16 slices through the entry point and with
    each group size of slices a block may own, which must all give the
    entry point's output bit for bit;
 3. the tomography path: ``standard_chain(n_det=2560, n_angles=1801,
    n_rows=16)`` through ``PluginRunner`` on ``CudaTransport("cuda")``
-   with every kernel's launch count set to 0 just before; checks that
-   every kernel launched and that the reconstruction matches the
-   phantom (correlation > 0.85 over the [8:-8] crop);
+   with every kernel's launch count set to 0 just before; the raw scan
+   (seed 0) is simulated on the card once, here, and handed to the
+   loader through its ``scan`` data parameter; checks that every kernel
+   launched and that the reconstruction matches the phantom
+   (correlation > 0.85 over the [8:-8] crop);
+3a. the service, gang: ``repro_torch.launch.pipeline_serve.main`` with 2
+   jobs of 2560 x 1801 x 8 (seeds 0 and 1; 8 rows, so the gang's 16
+   slices are phase 3's) on one worker, gang-batched, each job verified
+   against a serial run (rtol 1e-3, atol 1e-4); the kernels' counts are
+   set to 0 just before: one gang, and exactly one launch of each kernel
+   over the gang's steps (one more each per serial verification run);
+3b. streaming: phase 3's scan as a streaming job through ``JobQueue`` +
+   ``PipelineScheduler`` on ``CudaTransport("cuda")``: its raw frames
+   appended in slabs of 16-128 frames (``default_rng(0)``), each once
+   the job has consumed the previous one, a ``preview`` once half the
+   angles have landed; the reconstruction must equal phase 3's bit for
+   bit, with one correction launch per pump;
+3c. resume: the same streaming job with a ``CheckpointStore``, slabs of
+   128-256 frames, each once the previous one is checkpointed; the
+   scheduler is shut down after about half the frames, the same job id resubmitted to a fresh queue and scheduler
+   with the same store and fed from the checkpoint's watermark; the
+   reconstruction must equal phase 3's bit for bit;
 4. chain parity: one small scan through the chain on the card with the
    kernels and on the CPU with the plain versions (rtol 1e-3, atol 1e-4);
 5. the serving path: granite-8b at full width (36 layers, d_model 4096,
@@ -55,8 +76,11 @@ Phases, each fatal on failure:
    prefill's attention (the last V tile zero-filled; P rounded to bf16
    in the kernel's tiled arithmetic), against its limit.
 
-The line before the last is a JSON object ``{"kernels": [...]}``; the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+The line before the last is a JSON object ``{"kernels": [...]}`` (the
+correction row also gives the gang launch, ``batched_*``); the
+last line is ``{"ok": true, "device": {...}}``.  Phases 3a-3c print one
+``{"service_gang": ...}``, ``{"streaming": ...}`` and
+``{"stream_resume": ...}`` line each.  Without a CUDA device,
 or without the repository's ``src/repro_torch`` beside this file, it
 exits non-zero and prints no result.
 
@@ -69,9 +93,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -122,8 +148,6 @@ PROFILED_STEPS = 3
 #: multiply-add counted as 2) and the accumulation (1) once per slice
 BP_FLOPS_PER_PAIR = 2
 BP_FLOPS_PER_UPDATE = 4
-#: the earlier count, all 6 per slice, printed beside the new bound
-BP_FLOPS_PER_UPDATE_EARLIER = 6
 #: image rows at which the backprojection kernel is held against its own
 #: arithmetic (``backproject_tiled_ref``): the edges and the centre
 BP_TILED_ROWS = [0, 5, 1280, 2555]
@@ -135,6 +159,13 @@ BP_TILED_TOL = (1e-5, 1e-6)
 #: and the group sizes of slices a block of the kernel may own
 BP_SWEEP_SLICES = (1, 2, 3, 4, 6, 8, 12, 16)
 BP_GROUPS = (1, 2, 4, 8)
+#: the service phases: the gang's jobs (8 rows each, so the gang's 16
+#: slices are phase 3's), and the streaming slabs' sizes in frames
+GANG = {"jobs": 2, "n_rows": 8}
+STREAM_SLABS = (16, 128)
+RESUME_SLABS = (128, 256)
+#: seconds a streaming phase waits for the job to take up a slab
+STREAM_WAIT_S = 300
 
 
 def fail(msg: str) -> None:
@@ -300,11 +331,16 @@ def main() -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.core import CudaTransport, PluginRunner
+    from repro_torch.launch import pipeline_serve
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.service import (CheckpointStore, CompileCache, JobQueue,
+                                     JobState, PipelineScheduler)
     from repro_torch.kernels.backproject.kernel import backproject_cuda
     from repro_torch.kernels.backproject.ref import (backproject_ref,
                                                      backproject_tiled_ref)
     from repro_torch.kernels.correction.kernel import correct_cuda
-    from repro_torch.kernels.correction.ref import correct_ref
+    from repro_torch.kernels.correction.ref import (correct_batched_ref,
+                                                    correct_ref)
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
@@ -371,7 +407,35 @@ def main() -> None:
         "plain_ms": cuda_ms(
             lambda: correct_ref(raw, dark[None], flat[None]), 10),
         "bound_ms": b, "bound_by": by, "library_ms": None})
-    del raw, dark, flat, dead, zeros
+    # one launch for a gang at the gang's shape: GANG["jobs"] members of
+    # 1801 frames x 8 rows, each with its own dark and flat (the same
+    # bytes as phase 3's scan); each member's output must equal that of
+    # a launch for that member alone, bit for bit
+    jobs = GANG["jobs"]
+    braw = raw.reshape(n_ang, jobs, GANG["n_rows"], n_det).transpose(
+        0, 1).contiguous().reshape(jobs * n_ang, GANG["n_rows"], n_det)
+    bdark = dark.reshape(jobs, GANG["n_rows"], n_det).contiguous()
+    bflat = flat.reshape(jobs, GANG["n_rows"], n_det).contiguous()
+    counts = [n_ang] * jobs
+    got = correct_cuda(braw, bdark, bflat, counts)
+    berr = compare("correction, gang launch", got,
+                   correct_batched_ref(braw, bdark, bflat, counts),
+                   1e-6, 1e-6)
+    for j in range(jobs):
+        if not torch.equal(got[j * n_ang:(j + 1) * n_ang], correct_cuda(
+                braw[j * n_ang:(j + 1) * n_ang], bdark[j], bflat[j])):
+            fail(f"correction: member {j} of the gang launch differs from "
+                 f"a launch for that member alone")
+    rows[-1].update({
+        "batched_shape": list(braw.shape), "batched_max_abs_err": berr,
+        "batched_ms": cuda_ms(
+            lambda: correct_cuda(braw, bdark, bflat, counts), 20),
+        "batched_plain_ms": cuda_ms(
+            lambda: correct_batched_ref(braw, bdark, bflat, counts), 10),
+        "batched_bound_ms": bound_ms(
+            braw.numel() * (2 + 4) + 2 * bdark.numel() * 4,
+            braw.numel() * 7)[0]})
+    del raw, dark, flat, dead, zeros, braw, bdark, bflat, got
 
     filt_np = make_filter(n_det, "shepp")
     nf = filt_np.shape[0]
@@ -446,10 +510,7 @@ def main() -> None:
         "bound_ms": b, "bound_by": by, "library_ms": None})
     print(json.dumps({"backprojection": {
         "pairs_on_detector": inside, "updates": updates, "flops": bp_flops,
-        "bound_ms": b,
-        "bound_ms_earlier_count": bound_ms(
-            bp_bytes, updates * BP_FLOPS_PER_UPDATE_EARLIER)[0],
-        "ms": rows[-1]["ms"],
+        "bound_ms": b, "ms": rows[-1]["ms"],
         "g_updates_per_s": updates / rows[-1]["ms"] / 1e6,
         "max_abs_err_vs_tiled": tiled_err}}))
     del sino
@@ -508,9 +569,17 @@ def main() -> None:
                 "backprojection": backproject_cuda}
     for w in wrappers.values():
         w.launches = 0
+    t0 = time.perf_counter()
+    # seed 0, as the loader would simulate it; phases 3b and 3c stream it
+    scan = simulate_raw_scan(phantom_stack(n_det, n_rows),
+                             ParallelGeometry(n_ang, n_det, n_rows),
+                             seed=0, device=dev)
+    simulate_s = time.perf_counter() - t0
+    chain = standard_chain(**MAIN)
+    chain.entries[0].params["scan"] = scan
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    runner = PluginRunner(standard_chain(**MAIN))
+    runner = PluginRunner(chain)
     out = runner.run()
     torch.cuda.synchronize(dev)
     chain_s = time.perf_counter() - t0
@@ -520,7 +589,7 @@ def main() -> None:
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"main path launched no {missing} kernel")
-    recon = out["recon"].backing
+    recon3 = recon = out["recon"].backing
     if not isinstance(recon, torch.Tensor) or recon.device.type != "cuda":
         fail(f"recon is not a CUDA tensor: {type(recon)}")
     want = (n_rows, n_det, n_det)
@@ -534,15 +603,215 @@ def main() -> None:
          recon[crop].reshape(-1).double()]))[0, 1])
     peak = torch.cuda.max_memory_allocated(dev)
     print(json.dumps({
-        "chain": MAIN, "wall_s": chain_s,
-        "simulate_s": runner.profiler.totals("setup").get(
-            "synthetic_tomo_loader"),
+        "chain": MAIN, "wall_s": chain_s, "simulate_s": simulate_s,
         "process_s": runner.profiler.totals("process"),
         "max_memory_allocated": peak, "phantom_corr": corr,
         "launches": launches}))
     if not corr > 0.85:
         fail(f"phantom correlation {corr:.4f} <= 0.85")
-    del out, runner, recon, truth
+    del out, runner, truth
+    torch.cuda.empty_cache()
+
+    # -- 3a. the service: a gang of jobs through pipeline_serve -----------
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    gang = pipeline_serve.main([
+        "--jobs", str(GANG["jobs"]), "--workers", "1", "--batch",
+        "--n-det", str(n_det), "--n-angles", str(n_ang),
+        "--n-rows", str(GANG["n_rows"]), "--verify"])
+    total = {k: w.launches for k, w in wrappers.items()}
+    if gang["gangs_run"] != 1:
+        fail(f"gang: {gang['gangs_run']} gangs ran, expected 1")
+    if gang["kernel_launches"] != {k: 1 for k in wrappers}:
+        fail(f"gang: kernel launches over the gang's steps "
+             f"{gang['kernel_launches']}, expected one of each")
+    # one more of each per serial verification run
+    if total != {k: 1 + GANG["jobs"] for k in wrappers}:
+        fail(f"gang: kernel launches with the verification {total}")
+    if gang["gang_fallbacks"]:
+        fail(f"gang: {gang['gang_fallbacks']} steps fell back to solo")
+    print(json.dumps({"service_gang": {
+        "jobs": GANG["jobs"], "n_rows_per_job": GANG["n_rows"],
+        # the service's throughput: jobs over the time some job was in a
+        # plugin step (the gang's steps)
+        "jobs_per_s": gang["process_jobs_per_s"],
+        "process_s": gang["process_s"], "step_s": gang["step_s"],
+        # start to drain, each job's loader simulating its scan included
+        "jobs_per_s_with_simulation": gang["jobs_per_s"],
+        "wall_s_with_simulation": gang["wall_s"],
+        "job_wall_s_with_simulation": gang["job_wall_s"],
+        "max_abs_err_vs_serial": gang["max_abs_err_vs_serial"],
+        "compile_cache": gang["compile_cache"],
+        "launches": gang["kernel_launches"],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}}))
+    torch.cuda.empty_cache()
+
+    # -- 3b. streaming: phase 3's scan arriving slab by slab --------------
+    frames = scan["data"]                      # host uint16, as acquired
+
+    def slab_bounds(lo_hi, start=0):
+        rng_s = np.random.default_rng(0)
+        bounds, at = [], start
+        while at < n_ang:
+            k = int(rng_s.integers(lo_hi[0], lo_hi[1] + 1))
+            bounds.append((at, min(n_ang, at + k)))
+            at += k
+        return bounds
+
+    def streaming_job(queue):
+        chain = standard_chain(**MAIN)
+        chain.entries[0].params["scan"] = scan
+        chain.streaming = True
+        return queue.submit(chain, job_id="scan-0")
+
+    def wait_for(cond, what):
+        t_end = time.perf_counter() + STREAM_WAIT_S
+        while not cond():
+            if job.state.terminal() and not cond():
+                fail(f"{what}: job ended {job.status}: "
+                     f"{job.metadata.get('traceback', '')}")
+            if time.perf_counter() > t_end:
+                fail(f"{what}: timed out ({job.snapshot()})")
+            time.sleep(0.002)
+
+    def same_as_phase3(job, what):
+        got = job.runner.datasets["recon"].backing
+        if not torch.equal(got, recon3):
+            fail(f"{what}: reconstruction differs from phase 3's (max abs "
+                 f"err {float((got - recon3).abs().max()):.3e})")
+
+    cache = CompileCache()
+    metrics = MetricsRegistry()
+    queue = JobQueue()
+    sched = PipelineScheduler(
+        queue, n_workers=1, metrics=metrics, compile_cache=cache,
+        transport_factory=lambda j: CudaTransport(dev, compile_cache=cache))
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    job = streaming_job(queue)
+    sched.start()
+    preview = None
+    bounds = slab_bounds(STREAM_SLABS)
+    try:
+        t0 = time.perf_counter()
+        for lo, hi in bounds:
+            last_append = time.time()
+            sched.ingest_frames(job.job_id, frames[lo:hi], lo)
+            if hi < n_ang:
+                wait_for(lambda: job.frames_consumed >= hi, "streaming")
+            if preview is None and hi >= n_ang // 2:
+                torch.cuda.synchronize(dev)
+                tp = time.perf_counter()
+                arr, cut = sched.preview(job.job_id)
+                preview = {"watermark": cut,
+                           "ms": (time.perf_counter() - tp) * 1e3,
+                           "finite": bool(np.isfinite(arr).all()),
+                           "shape": list(arr.shape)}
+                del arr
+        sched.mark_eof(job.job_id)
+        if not sched.drain(timeout=STREAM_WAIT_S):
+            fail(f"streaming: job not done ({job.snapshot()})")
+        stream_s = time.perf_counter() - t0
+    finally:
+        sched.shutdown()
+    if job.state is not JobState.DONE:
+        fail(f"streaming: {job.status}\n{job.metadata.get('traceback')}")
+    same_as_phase3(job, "streaming")
+    snap = metrics.snapshot()
+    pumps = snap["stream.window_latency_s"]["count"]
+    slaunch = {k: w.launches for k, w in wrappers.items()}
+    if slaunch["correction"] != pumps or pumps != len(bounds):
+        fail(f"streaming: {slaunch['correction']} correction launches, "
+             f"{pumps} pumps, {len(bounds)} slabs")
+    # the preview and the final tail: the rest of the chain twice each
+    if slaunch["spectrum_scale"] != 2 or slaunch["backprojection"] != 2:
+        fail(f"streaming: launches {slaunch}, expected 2 spectrum scale and "
+             f"2 backprojection (the preview and the tail)")
+    if not (preview and preview["finite"]
+            and 0 < preview["watermark"] <= n_ang
+            and preview["shape"] == [n_rows, n_det, n_det]):
+        fail(f"streaming: preview {preview}")
+    print(json.dumps({"streaming": {
+        "slabs": len(bounds), "slab_frames": list(STREAM_SLABS),
+        "pumps": pumps, "launches": slaunch, "wall_s": stream_s,
+        "window_latency_s": snap["stream.window_latency_s"],
+        "ingest_lag_s": snap["stream.ingest_lag_s"],
+        "preview": preview,
+        "last_frame_to_done_s": job.finished_at - last_append,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}}))
+    del job, sched
+    torch.cuda.empty_cache()
+
+    # -- 3c. resume: a checkpointed stream killed half way ----------------
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        store = CheckpointStore(ckpt_dir)
+        saves = []
+        store_save = store.save
+
+        def counted_save(job_id, runner):
+            st = store_save(job_id, runner)
+            saves.append(st)
+            return st
+
+        store.save = counted_save
+        bounds = slab_bounds(RESUME_SLABS)
+        half = next(hi for _, hi in bounds if hi >= n_ang // 2)
+        runs = []
+        for attempt in range(2):
+            queue = JobQueue()
+            sched = PipelineScheduler(
+                queue, n_workers=1, checkpoints=store, compile_cache=cache,
+                transport_factory=lambda j: CudaTransport(
+                    dev, compile_cache=cache))
+            job = streaming_job(queue)
+            runs.append(job)
+            sched.start()
+            try:
+                # each slab once the previous one is checkpointed
+                if attempt == 0:
+                    feed = [(lo, hi) for lo, hi in bounds if lo < half]
+                else:
+                    restored = store.load(job.job_id)["stream"]["ingested"]
+                    feed = slab_bounds(RESUME_SLABS, restored)
+                for lo, hi in feed:
+                    sched.ingest_frames(job.job_id, frames[lo:hi], lo)
+                    if hi < n_ang:
+                        wait_for(lambda: (store.load(job.job_id) or {}).get(
+                            "stream", {}).get("ingested") == hi,
+                            f"resume: checkpoint at frame {hi}")
+                if attempt == 1:
+                    sched.mark_eof(job.job_id)
+                    if not sched.drain(timeout=STREAM_WAIT_S):
+                        fail(f"resume: job not done ({job.snapshot()})")
+            finally:
+                sched.shutdown()
+        first, second = runs
+        if restored != half:
+            fail(f"resume: restored at frame {restored}, the first run's "
+                 f"last checkpoint holds {half}")
+        if first.state is not JobState.FAILED or \
+                "mid-stream" not in (first.error or ""):
+            fail(f"resume: the first run ended {first.status}")
+        if second.state is not JobState.DONE:
+            fail(f"resume: {second.status}\n"
+                 f"{second.metadata.get('traceback')}")
+        same_as_phase3(second, "resume")
+        save_s = [sp.wall for j in runs for sp in j.trace.spans()
+                  if sp.name == "checkpoint.save"]
+        print(json.dumps({"stream_resume": {
+            "slab_frames": list(RESUME_SLABS), "restored_watermark": restored,
+            "checkpoint_saves": len(save_s),
+            "checkpoint_save_s": save_s,
+            "checkpoint_save_s_median": statistics.median(save_s),
+            "bytes_written": sum(st["bytes_written"] for st in saves),
+            "bytes_written_per_save": [st["bytes_written"] for st in saves],
+            "checkpoint_cleared": store.load(second.job_id) is None}}))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del runs, first, second, job, sched, recon3, frames, scan
     torch.cuda.empty_cache()
 
     # -- 4. chain parity: kernels on the card vs plain versions on the CPU
@@ -765,7 +1034,10 @@ def main() -> None:
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys},
+         **{k: v for k, v in r.items() if k.startswith("batched_")}}
+        for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

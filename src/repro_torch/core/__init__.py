@@ -10,8 +10,8 @@ from .plugin import (BaseFilter, BaseLoader, BasePlugin, BaseRecon,
 from .process_list import PluginEntry, ProcessList, ProcessListError
 from .framework import PluginRunner, run_process_list
 from .transport import (ChunkedFile, ChunkedFileTransport, CudaTransport,
-                        InMemoryTransport, IOStats, LocalCompileCache,
-                        Transport)
+                        GangSignatureMismatch, InMemoryTransport, IOStats,
+                        LocalCompileCache, Transport)
 from .chunking import (DEFAULT_CACHE_BYTES, chunks_touched, naive_chunks,
                        optimise_chunks)
 from .profiler import Event, Profiler
@@ -21,7 +21,8 @@ __all__ = [
     "BaseRecon", "BaseLoader", "BaseSaver", "LambdaFilter", "DeviceDriver",
     "PluginData", "CPU_DRIVER", "GPU_DRIVER", "ProcessList", "PluginEntry",
     "ProcessListError", "PluginRunner", "run_process_list", "Transport",
-    "InMemoryTransport", "CudaTransport", "ChunkedFileTransport",
+    "InMemoryTransport", "CudaTransport", "GangSignatureMismatch",
+    "ChunkedFileTransport",
     "ChunkedFile", "IOStats", "LocalCompileCache", "optimise_chunks",
     "naive_chunks", "chunks_touched", "DEFAULT_CACHE_BYTES", "Profiler",
     "Event", "PROJECTION", "SINOGRAM", "SPECTRUM", "DIFFRACTION",

@@ -28,6 +28,12 @@ class DataSet:
     backing: Any = None
     #: provenance: which plugin produced it ('' for loader-created)
     produced_by: str = ""
+    #: streaming (arrival-driven) extent: how many slots along
+    #: ``stream_axis`` hold real data.  None means the dataset is
+    #: complete-on-open (the batch assumption every transport makes).
+    available_extent: int | None = None
+    #: axis label the dataset grows along while streaming (None: static)
+    stream_axis: str | None = None
 
     def __post_init__(self):
         self.shape = tuple(int(s) for s in self.shape)

@@ -116,6 +116,14 @@ class BasePlugin:
         is any number of frames."""
         raise NotImplementedError
 
+    #: optional gang hook, ``(frames, consts_per_member, counts) ->
+    #: out blocks``: the frames of several jobs one after another
+    #: (member j owns ``counts[j]`` of them) with each member's own
+    #: :meth:`jit_constants`, for a per-frame plugin whose constants
+    #: differ between the members (``CudaTransport.run_plugin_batch``).
+    #: None: such a gang runs the step once per member.
+    process_frames_batched = None
+
     # -- optional hooks -------------------------------------------------
     def pre_process(self) -> None:  # once, before the frame loop
         pass
@@ -134,6 +142,26 @@ class BasePlugin:
         for pd in self.in_data + self.out_data:
             pd.pattern_name = pattern_name
             pd.n_frames = n_frames
+
+    @classmethod
+    def param_spec(cls) -> dict[str, Any]:
+        """Introspect this plugin class for the wire format
+        (``service.wire``): declared parameters with their defaults,
+        which of them are ``data_params`` or sweepable
+        (``tunable_params``), and the dataset arity.  Everything
+        returned is JSON-serialisable (non-JSON defaults are shown as
+        their ``repr``)."""
+        params = {}
+        for k, v in cls.parameters.items():
+            params[k] = {"default": v if _is_jsonable(v) else repr(v),
+                         "data_param": k in cls.data_params,
+                         "sweepable": k in cls.tunable_params}
+        doc = (cls.__doc__ or "").strip().splitlines()
+        return {"name": cls.name,
+                "doc": doc[0] if doc else "",
+                "n_in_datasets": cls.n_in_datasets,
+                "n_out_datasets": cls.n_out_datasets,
+                "params": params}
 
     # -- step-cache support ----------------------------------------------
     #: instance attrs that never feed process_frames

@@ -19,7 +19,7 @@ computes on one torch device, ``"cuda"`` unless the caller passes
 """
 from __future__ import annotations
 
-import contextlib
+import copy
 import dataclasses
 import os
 import shutil
@@ -80,17 +80,39 @@ def _device_consts(plugin: BasePlugin, device: torch.device
             for k, v in plugin.jit_constants().items()}
 
 
-@contextlib.contextmanager
-def _consts_on(plugin: BasePlugin, consts: dict[str, Any]):
-    """Bind ``consts`` onto the plugin for one step, then restore."""
-    saved = {k: getattr(plugin, k) for k in consts}
+def _same_consts(all_consts: Sequence[dict[str, Any]]) -> bool:
+    """True when every member's constants equal the first's (same keys,
+    equal tensors, equal scalars)."""
+    c0 = all_consts[0]
+    for c in all_consts[1:]:
+        if c.keys() != c0.keys():
+            return False
+        for k, v in c0.items():
+            w = c[k]
+            if isinstance(v, torch.Tensor):
+                if not (isinstance(w, torch.Tensor) and v.shape == w.shape
+                        and v.dtype == w.dtype and torch.equal(v, w)):
+                    return False
+            elif v != w:
+                return False
+    return True
+
+
+def _with_consts(plugin: BasePlugin, consts: dict[str, Any]) -> BasePlugin:
+    """A shallow copy of ``plugin`` with ``consts`` bound: a built step
+    is shared by every plugin instance with its key, and several jobs'
+    threads may run it at once, so each call binds its constants on a
+    copy of its own rather than on the shared instance."""
+    bound = copy.copy(plugin)
     for k, v in consts.items():
-        setattr(plugin, k, v)
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            setattr(plugin, k, v)
+        setattr(bound, k, v)
+    return bound
+
+
+class GangSignatureMismatch(ValueError):
+    """The members of a gang step do not share one built step (shapes,
+    dtypes, constants' structure or plugin identity differ): run them
+    one by one.  Any other error inside a gang step fails the gang."""
 
 
 class Transport:
@@ -113,6 +135,26 @@ class Transport:
     def read(self, ds: DataSet) -> np.ndarray:
         """Materialise a dataset to host numpy (tests / savers)."""
         return to_numpy(ds.materialise())
+
+    def run_window(self, plugin: BasePlugin, slabs: Sequence[Any],
+                   out_shapes: Sequence[tuple[int, ...]]) -> list[Any]:
+        """Streaming: ``process_frames`` over one slab of newly arrived
+        frames (a windowed plugin: ``n_frames == 1``, every frame
+        independent), in one call on this transport's device.  ``slabs``
+        are the plugin's inputs cut to the slab along the arrival axis;
+        returns its outputs of ``out_shapes``, which the runner writes
+        into the growing datasets."""
+        self._check_driver(plugin)
+        frames = [pd.pattern.to_frames(to_tensor(s, self.device))
+                  for pd, s in zip(plugin.in_data, slabs)]
+        res = _as_list(_with_consts(
+            plugin, _device_consts(plugin, self.device)).process_frames(
+                frames))
+        outs = [pd.pattern.from_frames(r, shp).to(
+                    torch_dtype(pd.dataset.dtype))
+                for pd, r, shp in zip(plugin.out_data, res, out_shapes)]
+        self._sync()
+        return outs
 
     def stats(self) -> dict[str, Any]:
         return {}
@@ -182,13 +224,13 @@ class InMemoryTransport(Transport):
         in_frames = [p.to_frames(a) for p, a in zip(in_pats, ins)]
         nf = in_frames[0].shape[0]
         out_accum: list[list[np.ndarray]] = [[] for _ in plugin.out_data]
-        with _consts_on(plugin, _device_consts(plugin, self.device)):
-            for start in range(0, nf, m):
-                blocks = [to_tensor(f[start:start + m], self.device)
-                          for f in in_frames]
-                res = _as_list(plugin.process_frames(blocks))
-                for i, r in enumerate(res):
-                    out_accum[i].append(to_numpy(r))
+        bound = _with_consts(plugin, _device_consts(plugin, self.device))
+        for start in range(0, nf, m):
+            blocks = [to_tensor(f[start:start + m], self.device)
+                      for f in in_frames]
+            res = _as_list(bound.process_frames(blocks))
+            for i, r in enumerate(res):
+                out_accum[i].append(to_numpy(r))
         outs = []
         for pd, pieces, pat in zip(plugin.out_data, out_accum, out_pats):
             flat = np.concatenate(pieces, axis=0)
@@ -227,21 +269,69 @@ class CudaTransport(Transport):
         out_dtypes = [torch_dtype(pd.dataset.dtype) for pd in plugin.out_data]
         m = plugin.in_data[0].n_frames if plugin.in_data else 1
 
-        def step(consts, *arrays):
-            with _consts_on(plugin, consts):
-                frames = [p.to_frames(a) for p, a in zip(in_pats, arrays)]
-                if m == 1:
-                    # per-frame plugins take the whole frame stack at once
-                    res = _as_list(plugin.process_frames(frames))
-                else:
-                    nf = frames[0].shape[0]
-                    groups = [_as_list(plugin.process_frames(
-                        [f[s:s + m] for f in frames]))
-                        for s in range(0, nf, m)]
-                    res = [torch.cat(parts) for parts in zip(*groups)]
+        def step(consts, *arrays, shapes=None):
+            # ``shapes``: the outputs' shapes when the inputs are a
+            # streaming slab rather than the whole datasets
+            bound = _with_consts(plugin, consts)
+            frames = [p.to_frames(a) for p, a in zip(in_pats, arrays)]
+            if m == 1:
+                # per-frame plugins take the whole frame stack at once
+                res = _as_list(bound.process_frames(frames))
+            else:
+                nf = frames[0].shape[0]
+                groups = [_as_list(bound.process_frames(
+                    [f[s:s + m] for f in frames]))
+                    for s in range(0, nf, m)]
+                res = [torch.cat(parts) for parts in zip(*groups)]
             return tuple(pat.from_frames(r, shp).to(dt)
                          for r, pat, shp, dt in zip(res, out_pats,
-                                                    out_shapes, out_dtypes))
+                                                    shapes or out_shapes,
+                                                    out_dtypes))
+
+        return step
+
+    def _batch_fn(self, plugin: BasePlugin):
+        """Gang step ``(all_consts, members) -> per-member outs`` for
+        :meth:`run_plugin_batch`.  A per-frame plugin (``n_frames == 1``)
+        runs ONCE over the members' frames stacked along the frame axis:
+        with the shared constants when every member's agree, or through
+        the plugin's ``process_frames_batched`` hook, which takes every
+        member's constants and frame count, when they differ.  Otherwise
+        each member runs the single step with its own constants, so no
+        member ever sees another's."""
+        single = self._plugin_fn(plugin)
+        in_pats = [pd.pattern for pd in plugin.in_data]
+        out_pats = [pd.pattern for pd in plugin.out_data]
+        out_shapes = [pd.dataset.shape for pd in plugin.out_data]
+        out_dtypes = [torch_dtype(pd.dataset.dtype) for pd in plugin.out_data]
+        m = plugin.in_data[0].n_frames if plugin.in_data else 1
+
+        def solo(all_consts, members):
+            return [single(c, *arrays)
+                    for c, arrays in zip(all_consts, members)]
+
+        def step(all_consts, members):
+            shared = _same_consts(all_consts)
+            if m != 1 or (not shared
+                          and plugin.process_frames_batched is None):
+                return solo(all_consts, members)
+            frames = [[p.to_frames(a) for p, a in zip(in_pats, arrays)]
+                      for arrays in members]
+            counts = [f[0].shape[0] for f in frames]
+            stacked = [torch.cat(col) for col in zip(*frames)]
+            del frames
+            if shared:
+                res = _as_list(_with_consts(
+                    plugin, all_consts[0]).process_frames(stacked))
+            else:
+                res = _as_list(plugin.process_frames_batched(
+                    stacked, all_consts, counts))
+            del stacked
+            per_out = [torch.split(r, counts) for r in res]
+            return [tuple(pat.from_frames(parts[j], shp).to(dt)
+                          for parts, pat, shp, dt in zip(
+                              per_out, out_pats, out_shapes, out_dtypes))
+                    for j in range(len(members))]
 
         return step
 
@@ -295,6 +385,50 @@ class CudaTransport(Transport):
         self._release(plugin, [plugin])
         self._sync()
         return outs
+
+    def run_window(self, plugin: BasePlugin, slabs: Sequence[Any],
+                   out_shapes: Sequence[tuple[int, ...]]) -> list[Any]:
+        """Streaming slab through the SAME built step as
+        :meth:`run_plugin` (keyed on the whole datasets, never on the
+        slab's length, so random slab sizes add no cache entries)."""
+        self._check_driver(plugin)
+        consts = _device_consts(plugin, self.device)
+        step = self.compile_cache.get_or_build(
+            self._plugin_key(plugin, consts),
+            lambda: self._plugin_fn(plugin))
+        outs = list(step(consts, *[to_tensor(s, self.device) for s in slabs],
+                         shapes=out_shapes))
+        self._sync()
+        return outs
+
+    def run_plugin_batch(self, plugins: Sequence[BasePlugin]) -> None:
+        """Gang execution: the SAME plugin step of several jobs as one
+        call over all members' datasets (the JAX package vmaps its step
+        over a stacked job axis; here the job axis folds into the frame
+        axis, so a hand-written kernel launches once for the gang).
+        Every plugin must agree on :meth:`_plugin_key`; a mismatch raises
+        :class:`GangSignatureMismatch` and the scheduler runs the members
+        solo."""
+        p0 = plugins[0]
+        all_consts = [_device_consts(p, self.device) for p in plugins]
+        k0 = self._plugin_key(p0, all_consts[0])
+        for p, c in zip(plugins[1:], all_consts[1:]):
+            if self._plugin_key(p, c) != k0:
+                raise GangSignatureMismatch(
+                    f"run_plugin_batch: plugin {p.name} does not match "
+                    f"the batch signature of {p0.name}")
+        for p in plugins:
+            self._check_driver(p)
+        step = self.compile_cache.get_or_build(
+            ("batch", k0), lambda: self._batch_fn(p0))
+        members = [self._device_in(p) for p in plugins]
+        outs = step(all_consts, members)
+        del members
+        for p, o in zip(plugins, outs):
+            for pd, t in zip(p.out_data, o):
+                pd.dataset.backing = t
+            self._release(p, [p])
+        self._sync()
 
     def run_fused(self, plugins: Sequence[BasePlugin]) -> list[Any]:
         """Run a linear run of plugins as one step: intermediates stay
@@ -573,26 +707,26 @@ class ChunkedFileTransport(Transport):
                         for pd in in_pds]
         out_iters = [pd.pattern.frame_slices(pd.dataset.shape, m)
                      for pd in out_pds]
-        with _consts_on(plugin, _device_consts(plugin, self.device)):
-            for idx_tuple in zip(*slices_iters):
-                blocks = []
-                for pd, pat, idx in zip(in_pds, in_pats, idx_tuple):
-                    backing = pd.dataset.backing
-                    if isinstance(backing, ChunkedFile):
-                        raw = backing.read(idx)
-                    else:
-                        raw = to_numpy(pd.dataset.materialise())[idx]
-                    frames = pat.to_frames(
-                        raw, shape=[s.stop - (s.start or 0)
-                                    for s in _norm_idx(idx,
-                                                       pd.dataset.shape)])
-                    blocks.append(to_tensor(frames, self.device))
-                res = _as_list(plugin.process_frames(blocks))
-                for pd, pat, r, it in zip(out_pds, out_pats, res, out_iters):
-                    oidx = _norm_idx(next(it), pd.dataset.shape)
-                    oshape = [s.stop - s.start for s in oidx]
-                    val = pat.from_frames(to_numpy(r), oshape)
-                    pd.dataset.backing.write(oidx, val)
+        bound = _with_consts(plugin, _device_consts(plugin, self.device))
+        for idx_tuple in zip(*slices_iters):
+            blocks = []
+            for pd, pat, idx in zip(in_pds, in_pats, idx_tuple):
+                backing = pd.dataset.backing
+                if isinstance(backing, ChunkedFile):
+                    raw = backing.read(idx)
+                else:
+                    raw = to_numpy(pd.dataset.materialise())[idx]
+                frames = pat.to_frames(
+                    raw, shape=[s.stop - (s.start or 0)
+                                for s in _norm_idx(idx,
+                                                   pd.dataset.shape)])
+                blocks.append(to_tensor(frames, self.device))
+            res = _as_list(bound.process_frames(blocks))
+            for pd, pat, r, it in zip(out_pds, out_pats, res, out_iters):
+                oidx = _norm_idx(next(it), pd.dataset.shape)
+                oshape = [s.stop - s.start for s in oidx]
+                val = pat.from_frames(to_numpy(r), oshape)
+                pd.dataset.backing.write(oidx, val)
         for pd in out_pds:
             pd.dataset.backing.flush()
         return [pd.dataset.backing for pd in out_pds]

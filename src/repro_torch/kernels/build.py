@@ -13,12 +13,12 @@ without ``nvcc`` or a card.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -90,24 +90,47 @@ def build() -> Path:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
+#: guards the first build and load: the service's worker threads may
+#: make their first launches together, and each must find the one
+#: library, built once
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+_FUNCS: dict[tuple[str, tuple], ctypes._CFuncPtr] = {}
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    lib = ctypes.CDLL(str(build()))
-    lib.tomo_error_string.argtypes = [ctypes.c_int]
-    lib.tomo_error_string.restype = ctypes.c_char_p
-    return lib
+    """The loaded kernel library (built on first use, once, whichever
+    thread asks first; the others wait for it)."""
+    global _LIB
+    lib = _LIB
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.tomo_error_string.argtypes = [ctypes.c_int]
+            lib.tomo_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
 
 
-@functools.lru_cache(maxsize=None)
 def function(name: str, argtypes: tuple) -> ctypes._CFuncPtr:
     """A C entry point of the library with its argument types declared
     (pointers and the stream as ``c_void_p``, so none is cut to 32
     bits); every entry point returns a ``cudaError_t`` as ``int``."""
-    fn = getattr(library(), name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
+    key = (name, argtypes)
+    fn = _FUNCS.get(key)
+    if fn is not None:
+        return fn
+    lib = library()
+    with _LOCK:
+        fn = _FUNCS.get(key)
+        if fn is None:
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _FUNCS[key] = fn
+        return fn
 
 
 def check(err: int, name: str) -> None:

@@ -8,6 +8,8 @@ correction, linearisation").
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 EPS = 1e-6
@@ -22,3 +24,20 @@ def correct_ref(raw: torch.Tensor, dark: torch.Tensor, flat: torch.Tensor,
     denom = torch.clamp(flat - dark, min=eps)
     trans = torch.clamp((raw - dark) / denom, eps, hi)
     return -torch.log(trans)
+
+
+def correct_batched_ref(raw: torch.Tensor, dark: torch.Tensor,
+                        flat: torch.Tensor, counts: Sequence[int],
+                        eps: float = EPS, hi: float = HI) -> torch.Tensor:
+    """A gang of scans: member j's ``counts[j]`` frames of raw (after
+    member j - 1's) with its own dark[j]/flat[j] of (J, Y, X)."""
+    if sum(counts) != raw.shape[0] or len(counts) != dark.shape[0]:
+        raise ValueError(f"correct_batched: counts {list(counts)} do not "
+                         f"split {raw.shape[0]} frames over "
+                         f"{dark.shape[0]} members")
+    outs, lo = [], 0
+    for j, n in enumerate(counts):
+        outs.append(correct_ref(raw[lo:lo + n], dark[j][None],
+                                flat[j][None], eps, hi))
+        lo += n
+    return torch.cat(outs)

@@ -8,6 +8,14 @@
 // raw is (F, Y, X), dark and flat are (Y, X) float32 and broadcast over
 // the frames; out is (F, Y, X) float32.
 //
+// A gang of J scans takes one launch: raw is the J members' frames one
+// after another, member j owning frames [offsets[j], offsets[j + 1]);
+// dark and flat are (J, Y, X), member j's at j * Y * X.  grid.z is the
+// member, so a block's run of frames never crosses from one member into
+// the next: a member's frame count need not be a multiple of RUN, and no
+// frame is corrected with a neighbour's dark or flat.  One scan is the
+// case J == 1 with null offsets.
+//
 // Bound on the card: bytes.  A handful of operations per pixel against
 // 2 bytes read (uint16 raw) + 4 bytes written; dark and flat are read
 // once per run of frames.
@@ -66,23 +74,27 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 correct_vec_kernel(const T* __restrict__ raw, const float* __restrict__ dark,
                    const float* __restrict__ flat, float* __restrict__ out,
+                   const long long* __restrict__ offsets,
                    long long n_frames, long long plane, float eps,
                    float hi) {
     const long long p = (blockIdx.x * static_cast<long long>(THREADS)
                          + threadIdx.x) * VEC;
     if (p >= plane) return;
+    const long long lo = offsets ? offsets[blockIdx.z] : 0;
+    const long long end = offsets ? offsets[blockIdx.z + 1] : n_frames;
+    const long long cal = blockIdx.z * plane;     // this member's dark/flat
     float d[VEC], den[VEC];
-    load8_ldg(dark + p, d);
-    load8_ldg(flat + p, den);
+    load8_ldg(dark + cal + p, d);
+    load8_ldg(flat + cal + p, den);
 #pragma unroll
     for (int v = 0; v < VEC; ++v)
         // max(flat - dark, eps) keeps a dead pixel (flat == dark) finite
         den[v] = fmaxf(den[v] - d[v], eps);
-    for (long long f0 = blockIdx.y * static_cast<long long>(RUN);
-         f0 < n_frames; f0 += static_cast<long long>(gridDim.y) * RUN) {
+    for (long long f0 = lo + blockIdx.y * static_cast<long long>(RUN);
+         f0 < end; f0 += static_cast<long long>(gridDim.y) * RUN) {
 #pragma unroll
         for (int k = 0; k < RUN; ++k) {
-            if (f0 + k >= n_frames) break;
+            if (f0 + k >= end) break;
             const long long i = (f0 + k) * plane + p;
             float r[VEC];
             load8(raw + i, r);
@@ -101,18 +113,23 @@ __global__ void __launch_bounds__(THREADS)
 correct_scalar_kernel(const T* __restrict__ raw,
                       const float* __restrict__ dark,
                       const float* __restrict__ flat,
-                      float* __restrict__ out, long long n_frames,
-                      long long plane, float eps, float hi) {
+                      float* __restrict__ out,
+                      const long long* __restrict__ offsets,
+                      long long n_frames, long long plane, float eps,
+                      float hi) {
     const long long p = blockIdx.x * static_cast<long long>(THREADS)
                         + threadIdx.x;
     if (p >= plane) return;
-    const float d = dark[p];
-    const float den = fmaxf(flat[p] - d, eps);
-    for (long long f0 = blockIdx.y * static_cast<long long>(RUN);
-         f0 < n_frames; f0 += static_cast<long long>(gridDim.y) * RUN) {
+    const long long lo = offsets ? offsets[blockIdx.z] : 0;
+    const long long end = offsets ? offsets[blockIdx.z + 1] : n_frames;
+    const long long cal = blockIdx.z * plane;
+    const float d = dark[cal + p];
+    const float den = fmaxf(flat[cal + p] - d, eps);
+    for (long long f0 = lo + blockIdx.y * static_cast<long long>(RUN);
+         f0 < end; f0 += static_cast<long long>(gridDim.y) * RUN) {
 #pragma unroll
         for (int k = 0; k < RUN; ++k) {
-            if (f0 + k >= n_frames) break;
+            if (f0 + k >= end) break;
             const long long i = (f0 + k) * plane + p;
             out[i] = correct1(static_cast<float>(raw[i]), d, den, eps, hi);
         }
@@ -129,40 +146,54 @@ unsigned blocks(long long work) {
 
 template <typename T>
 int launch(const void* raw, const void* dark, const void* flat, void* out,
-           long long n_frames, long long plane, float eps, float hi,
+           const long long* offsets, long long n_members,
+           long long max_frames, long long plane, float eps, float hi,
            void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const long long runs = (n_frames + RUN - 1) / RUN;
+    if (n_members < 1 || n_members > 65535 ||
+        (offsets == nullptr && n_members != 1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long runs = (max_frames + RUN - 1) / RUN;
     const unsigned gy = static_cast<unsigned>(runs < 65535 ? runs : 65535);
+    const unsigned gz = static_cast<unsigned>(n_members);
     const auto* r = static_cast<const T*>(raw);
     const auto* d = static_cast<const float*>(dark);
     const auto* f = static_cast<const float*>(flat);
     auto* o = static_cast<float*>(out);
     if (plane % VEC == 0 && aligned16(raw) && aligned16(dark) &&
         aligned16(flat) && aligned16(out)) {
-        correct_vec_kernel<T><<<dim3(blocks(plane / VEC), gy), THREADS, 0,
-                                st>>>(r, d, f, o, n_frames, plane, eps, hi);
+        correct_vec_kernel<T><<<dim3(blocks(plane / VEC), gy, gz), THREADS,
+                                0, st>>>(r, d, f, o, offsets, max_frames,
+                                         plane, eps, hi);
     } else {
-        correct_scalar_kernel<T><<<dim3(blocks(plane), gy), THREADS, 0, st>>>(
-            r, d, f, o, n_frames, plane, eps, hi);
+        correct_scalar_kernel<T><<<dim3(blocks(plane), gy, gz), THREADS, 0,
+                                   st>>>(r, d, f, o, offsets, max_frames,
+                                         plane, eps, hi);
     }
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// offsets: null for one member, else n_members + 1 frame offsets on the
+// device (offsets[0] == 0); max_frames: the largest member's frame count
+// (with null offsets, the frame count), which sizes grid.y.
 extern "C" int correct_u16(const void* raw, const void* dark,
-                           const void* flat, void* out, long long n_frames,
+                           const void* flat, void* out, const void* offsets,
+                           long long n_members, long long max_frames,
                            long long plane, float eps, float hi,
                            void* stream) {
-    return launch<uint16_t>(raw, dark, flat, out, n_frames, plane, eps, hi,
-                            stream);
+    return launch<uint16_t>(raw, dark, flat, out,
+                            static_cast<const long long*>(offsets),
+                            n_members, max_frames, plane, eps, hi, stream);
 }
 
 extern "C" int correct_f32(const void* raw, const void* dark,
-                           const void* flat, void* out, long long n_frames,
+                           const void* flat, void* out, const void* offsets,
+                           long long n_members, long long max_frames,
                            long long plane, float eps, float hi,
                            void* stream) {
-    return launch<float>(raw, dark, flat, out, n_frames, plane, eps, hi,
-                         stream);
+    return launch<float>(raw, dark, flat, out,
+                         static_cast<const long long*>(offsets), n_members,
+                         max_frames, plane, eps, hi, stream);
 }

@@ -1,8 +1,10 @@
 """Job tracing: the spans the profiler and the transports record.
 
 The port's copy of the part of ``repro.obs.trace`` that the framework
-uses (:class:`Span`, :class:`Trace`, :func:`current_trace`).  Shipping
-spans between processes belongs to the service layer, not yet ported.
+and the in-process service use (:class:`Span`, :class:`Trace`,
+:func:`current_trace`, :func:`use_trace`).  Shipping spans between
+processes (``merge``/``take_unshipped``, ``TraceSpool``) belongs to the
+broker-mode workers, not yet ported.
 
 A :class:`Span` is one timed operation (``compile``,
 ``plugin.<name>.<phase>``...) with epoch-second timestamps, so spans
@@ -41,6 +43,12 @@ class Span:
     parent_id: str | None = None
     worker_id: str | None = None
     attrs: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def wall(self) -> float:
+        """Seconds from start to end (to now while the span is open)."""
+        return (self.end if self.end is not None else time.time()) \
+            - self.start
 
 
 class Trace:
@@ -101,6 +109,21 @@ class Trace:
         if span in stack:
             del stack[stack.index(span):]
         return span
+
+    @contextlib.contextmanager
+    def span(self, name: str, *, worker_id: str | None = None,
+             **attrs: Any):
+        """Context manager: open → yield → close, with automatic parent
+        links.  An exception closes the span with ``attrs["error"]`` set
+        before propagating."""
+        s = self.begin(name, worker_id=worker_id, attrs=attrs)
+        try:
+            yield s
+        except BaseException as e:
+            s.attrs["error"] = type(e).__name__
+            raise
+        finally:
+            self.finish(s)
 
     def spans(self) -> list[Span]:
         """Every span, ordered by start time (ties: insertion order)."""

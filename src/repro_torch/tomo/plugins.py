@@ -92,6 +92,14 @@ class DarkFlatCorrection(BaseFilter):
         return correct(block, self._dark, self._flat,
                        use_pallas=self.params["use_pallas"])
 
+    def process_frames_batched(self, frames, consts, counts):
+        """A gang's frames (member j's ``counts[j]`` after member
+        j - 1's), each member with its own dark and flat: one launch."""
+        (block,) = frames
+        return correct(block, torch.stack([c["_dark"] for c in consts]),
+                       torch.stack([c["_flat"] for c in consts]),
+                       counts=counts, use_pallas=self.params["use_pallas"])
+
 
 class PaganinFilter(BaseFilter):
     """Single-distance phase retrieval (Paganin 2002) — projection-space

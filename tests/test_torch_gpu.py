@@ -22,7 +22,8 @@ from repro_torch.kernels.backproject.ref import (backproject_ref,
                                                  backproject_tiled_ref)
 from repro_torch.kernels.correction.kernel import correct_cuda
 from repro_torch.kernels.correction.ops import correct
-from repro_torch.kernels.correction.ref import correct_ref
+from repro_torch.kernels.correction.ref import (correct_batched_ref,
+                                                correct_ref)
 from repro_torch.kernels.sino_filter.kernel import scale_spectrum_cuda
 from repro_torch.kernels.sino_filter.ops import filter_sino
 from repro_torch.kernels.sino_filter.ref import (filter_sino_ref, make_filter,
@@ -73,6 +74,82 @@ def test_correction_kernel_on_card(cuda, rng, dtype, F, Y, X, offset):
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, correct_ref(raw.cpu(), dark, flat).numpy(),
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+@pytest.mark.parametrize("counts,Y,X", [((5, 7, 1801), 16, 64),
+                                        ((3, 0, 6), 5, 7)],
+                         ids=["ragged_vector", "scalar_with_empty"])
+def test_correction_batched_kernel_on_card(cuda, rng, dtype, counts, Y, X):
+    """A gang in one launch: members' frame counts no run of 4 divides,
+    each member with its own dark/flat; equal bit for bit to correcting
+    each member alone."""
+    raw = _t(rng.integers(0, 40000, size=(sum(counts), Y, X)).astype(dtype))
+    dark = _t(rng.integers(80, 120, size=(len(counts), Y, X))
+              .astype(np.float32))
+    flat = _t(rng.integers(30000, 42000, size=(len(counts), Y, X))
+              .astype(np.float32))
+    n = correct_cuda.launches
+    got = correct(raw.to(cuda), dark.to(cuda), flat.to(cuda),
+                  counts=list(counts))
+    assert correct_cuda.launches == n + 1
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        correct_batched_ref(raw, dark, flat, list(counts)).numpy(),
+        rtol=1e-6, atol=1e-6)
+    lo = 0
+    for j, c in enumerate(counts):
+        alone = correct_cuda(raw[lo:lo + c].to(cuda),
+                             dark[j].to(cuda), flat[j].to(cuda))
+        assert torch.equal(got[lo:lo + c], alone)
+        lo += c
+
+
+def test_first_launches_from_two_threads_build_once(cuda, rng, tmp_path,
+                                                     monkeypatch):
+    """Two threads make their first launch together against an empty
+    build directory: the library is built and loaded once, and both
+    outputs are right."""
+    import threading
+
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_LIB", None)
+    monkeypatch.setattr(build, "_FUNCS", {})
+    builds = []
+    real_build = build.build
+
+    def counted():
+        builds.append(threading.current_thread().name)
+        return real_build()
+
+    monkeypatch.setattr(build, "build", counted)
+    raws = [_t(rng.integers(0, 40000, size=(6, 8, 64)).astype(np.uint16))
+            for _ in range(2)]
+    dark = _t(rng.integers(80, 120, size=(8, 64)).astype(np.float32))
+    flat = _t(rng.integers(30000, 42000, size=(8, 64)).astype(np.float32))
+    outs, errors = [None, None], []
+    barrier = threading.Barrier(2)
+
+    def launch(i):
+        try:
+            barrier.wait()
+            outs[i] = correct_cuda(raws[i].to(cuda), dark.to(cuda),
+                                   flat.to(cuda)).cpu()
+        except Exception as e:              # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=launch, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert errors == [] and len(builds) == 1
+    assert len(list((tmp_path / "kernels").glob("libtomo_kernels-*.so"))) == 1
+    for raw, out in zip(raws, outs):
+        np.testing.assert_allclose(out.numpy(),
+                                   correct_ref(raw, dark, flat).numpy(),
+                                   rtol=1e-6, atol=1e-6)
 
 
 def test_sino_filter_kernel_on_card(cuda, rng):
@@ -173,6 +250,68 @@ def test_chain_on_card_matches_cpu(cuda):
         runner = PluginRunner(chain, CudaTransport(device))
         recons.append(runner.transport.read(runner.run()["recon"]))
     np.testing.assert_allclose(recons[0], recons[1], rtol=1e-3, atol=1e-4)
+
+
+def _scan_chain(scan, n, angles, rows):
+    chain = standard_chain(n, angles, rows)
+    chain.entries[0].params["scan"] = scan
+    return chain
+
+
+def test_streamed_chain_on_card_equals_batch_bit_for_bit(cuda):
+    """Slabs of random size through feed/pump on the card: one
+    correction launch per slab, the batch run's reconstruction bit for
+    bit, and a preview on the card mid-stream."""
+    scan = simulate_raw_scan(phantom_stack(64, 2),
+                             ParallelGeometry(70, 64, 2), device=cuda)
+    batch = PluginRunner(_scan_chain(scan, 64, 70, 2), CudaTransport(cuda))
+    want = batch.run()["recon"].backing
+    runner = PluginRunner(_scan_chain(scan, 64, 70, 2), CudaTransport(cuda))
+    runner.enable_streaming()
+    assert runner.datasets["tomo"].backing.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    n = correct_cuda.launches
+    fed, slabs = 0, 0
+    while fed < 70:
+        k = int(rng.integers(1, 13))
+        fed = runner.feed(scan["data"][fed:fed + k], fed)
+        runner.pump()
+        slabs += 1
+        if fed >= 35 and fed - k < 35:
+            arr, cut = runner.preview()
+            assert cut == fed and arr.shape == (2, 64, 64)
+            assert np.isfinite(arr).all()
+    assert correct_cuda.launches == n + slabs
+    runner.finalise()
+    assert torch.equal(runner.datasets["recon"].backing, want)
+
+
+def test_gang_on_card_launches_each_kernel_once(cuda):
+    """Three scans gang-batched: one launch of each kernel for the gang,
+    each member within the chain bound of its serial run."""
+    from repro_torch.service import JobQueue, PipelineScheduler
+    scans = [simulate_raw_scan(phantom_stack(64, 2),
+                               ParallelGeometry(48, 64, 2), seed=s,
+                               device=cuda) for s in range(3)]
+    q = JobQueue()
+    sched = PipelineScheduler(q, n_workers=1, batch_identical=True,
+                              transport_factory=lambda j: CudaTransport(cuda))
+    jobs = [q.submit(_scan_chain(s, 64, 48, 2)) for s in scans]
+    before = (correct_cuda.launches, scale_spectrum_cuda.launches,
+              backproject_cuda.launches)
+    sched.start()
+    try:
+        assert sched.drain(timeout=120)
+    finally:
+        sched.shutdown()
+    assert sched.gangs_run == 1
+    assert (correct_cuda.launches, scale_spectrum_cuda.launches,
+            backproject_cuda.launches) == tuple(b + 1 for b in before)
+    for s, job in zip(scans, jobs):
+        serial = PluginRunner(_scan_chain(s, 64, 48, 2), CudaTransport(cuda))
+        want = serial.transport.read(serial.run()["recon"])
+        got = job.runner.transport.read(job.runner.datasets["recon"])
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
 
 
 # (B, Hq, Hkv, S, D): the reference's sweep, then group sizes 4 and 48

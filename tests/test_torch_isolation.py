@@ -17,8 +17,9 @@ from repro_torch.core import ChunkedFileTransport, InMemoryTransport, \
 from repro_torch.configs import get_config
 from repro_torch.kernels.backproject.ops import backproject
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.launch import serve
+from repro_torch.launch import pipeline_serve, serve
 from repro_torch.models import build_model
+from repro_torch.service import JobQueue, PipelineScheduler
 from repro_torch.tomo import ParallelGeometry, forward_project, \
     standard_chain
 
@@ -61,7 +62,9 @@ def test_port_imports_with_jax_and_reference_blocked():
           for m in ["repro_torch", "repro_torch.core", "repro_torch.tomo",
                     "repro_torch.configs", "repro_torch.models",
                     "repro_torch.models.convert", "repro_torch.training",
-                    "repro_torch.launch.serve", *ops]],
+                    "repro_torch.launch.serve", "repro_torch.obs",
+                    "repro_torch.service",
+                    "repro_torch.launch.pipeline_serve", *ops]],
         "print('imported')"])
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -90,8 +93,10 @@ def test_runner_without_transport_needs_the_card(no_cuda):
                             ParallelGeometry(2, 4, 1)),
     lambda: build_model(get_config("granite-8b", smoke=True)),
     lambda: serve.main(["--smoke", "--requests", "1"]),
+    lambda: PipelineScheduler(JobQueue()),
+    lambda: pipeline_serve.main(["--jobs", "1"]),
 ], ids=["resolve_device", "inmemory", "chunked", "forward_project",
-        "build_model", "serve"])
+        "build_model", "serve", "scheduler", "pipeline_serve"])
 def test_entry_points_default_to_the_card(no_cuda, make):
     with pytest.raises(RuntimeError, match="cpu"):
         make()
@@ -109,3 +114,38 @@ def test_flash_kernel_requested_off_the_card_raises():
     q = torch.zeros((1, 2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         attention(q, q, q, use_pallas=True)
+
+
+def test_pipeline_serve_runs_on_the_cpu_when_asked(capsys):
+    summary = pipeline_serve.main(["--jobs", "2", "--workers", "1",
+                                   "--batch", "--device", "cpu",
+                                   "--n-det", "16", "--n-angles", "12"])
+    assert summary["gangs_run"] == 1
+    assert summary["max_abs_err_vs_serial"] < 1e-4   # verified in main
+    assert summary["kernel_launches"] == {
+        "correction": 0, "spectrum_scale": 0, "backprojection": 0}
+    assert summary["gang_fallbacks"] == 0
+    # the steps' busy time leaves out the loaders' scan simulation
+    assert 0 < summary["process_s"] < summary["wall_s"]
+    assert summary["process_jobs_per_s"] > summary["jobs_per_s"]
+    assert '"pipeline_serve"' in capsys.readouterr().out
+
+
+def test_pipeline_serve_batch_max_bounds_the_gang():
+    """--batch-max is passed to the scheduler as given: three jobs with
+    a bound of 2 on one worker make one gang of two and one solo job."""
+    summary = pipeline_serve.main(["--jobs", "3", "--workers", "1",
+                                   "--batch", "--batch-max", "2",
+                                   "--device", "cpu", "--n-det", "16",
+                                   "--n-angles", "12"])
+    assert summary["gangs_run"] == 1
+    assert summary["max_abs_err_vs_serial"] < 1e-4
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--serve", "8973"], "D1"), (["--workers-remote", "2"], "D1"),
+    (["--cost-analysis"], "D4"), (["client", "submit"], "D1")],
+    ids=["serve", "workers_remote", "cost_analysis", "client"])
+def test_pipeline_serve_modes_not_ported_name_their_item(argv, item):
+    with pytest.raises(SystemExit, match=item):
+        pipeline_serve.main(argv)

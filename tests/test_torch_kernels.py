@@ -28,7 +28,8 @@ from repro_torch.kernels.backproject.kernel import backproject_cuda
 from repro_torch.kernels.backproject.ops import backproject
 from repro_torch.kernels.correction.kernel import correct_cuda
 from repro_torch.kernels.correction.ops import correct
-from repro_torch.kernels.correction.ref import correct_ref
+from repro_torch.kernels.correction.ref import (correct_batched_ref,
+                                                correct_ref)
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ops import attention
@@ -80,6 +81,40 @@ def test_correction_leading_dims(rng):
         got.numpy()[1, 2],
         correct_ref(_t(raw[1, 2]), _t(dark), _t(flat)).numpy(),
         rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+@pytest.mark.parametrize("counts", [(5, 7, 1), (3, 0, 6), (9,)],
+                         ids=["ragged", "empty_member", "one_member"])
+def test_correction_batched_matches_jax_per_member(rng, dtype, counts):
+    """A gang of scans in one call, each member with its own dark and
+    flat and a frame count no run of 4 divides: each member's output
+    equals the JAX kernel's on that member alone (interpret mode)."""
+    y, x = 8, 24
+    raw = rng.integers(50, 40000, size=(sum(counts), y, x)).astype(dtype)
+    dark = rng.integers(80, 120, size=(len(counts), y, x)).astype(dtype)
+    flat = rng.integers(30000, 42000,
+                        size=(len(counts), y, x)).astype(dtype)
+    flat[-1, ::3] = dark[-1, ::3]                      # dead pixels
+    got = correct(_t(raw), _t(dark), _t(flat), counts=list(counts))
+    assert got.dtype == torch.float32 and got.shape == raw.shape
+    lo = 0
+    for j, n in enumerate(counts):
+        if n:
+            want = correct_pallas(jnp.asarray(raw[lo:lo + n]),
+                                  jnp.asarray(dark[j]), jnp.asarray(flat[j]),
+                                  interpret=True)
+            np.testing.assert_allclose(got.numpy()[lo:lo + n],
+                                       np.asarray(want), rtol=1e-6,
+                                       atol=1e-6)
+        lo += n
+
+
+def test_correction_batched_rejects_bad_counts(rng):
+    raw = _t(rng.integers(0, 100, size=(6, 2, 8)).astype(np.uint16))
+    cal = _t(np.ones((2, 2, 8), np.float32))
+    with pytest.raises(ValueError, match="split"):
+        correct_batched_ref(raw, cal, cal, [2, 3])
 
 
 # ----------------------------------------------------------- sino filter
