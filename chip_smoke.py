@@ -13,7 +13,10 @@ Phases, each fatal on failure:
    where one PyTorch call computes the same function, that call (the
    spectrum scale and ``spec * filt`` in alternating rounds);
    correction also as one launch for a gang at the gang's shape (each
-   member equal to a launch for it alone, bit for bit).  Flash
+   member equal to a launch for it alone, bit for bit), and the
+   spectrum scale as one launch for a sweep of 4 cutoffs with a filter
+   row per member (bit for bit the plain version's and each member's
+   launch alone).  Flash
    attention is held at the serving shape in bf16 against ``mha_ref``
    (rtol 1e-2, atol 1e-3, tighter than the JAX test's 5e-2 at S 64,
    where outputs are larger) and against ``mha_tiled_ref``, which
@@ -53,6 +56,22 @@ Phases, each fatal on failure:
    scheduler is shut down after about half the frames, the same job id resubmitted to a fresh queue and scheduler
    with the same store and fed from the checkpoint's watermark; the
    reconstruction must equal phase 3's bit for bit;
+3d. the HTTP service on the card: ``PipelineService`` (card, gang
+   batching, cost analysis) on 127.0.0.1:0 driven by ``PipelineClient``:
+   a sweep of 4 ``sinogram_filter.cutoff`` values (1.0, 0.8, 0.6, 0.4)
+   at 2560 x 1801 x 4 rows per variant must run as 1 gang with no
+   fallback, each gang step's span recording one launch of its kernel
+   (and one more launch each in the cost analysis' run before the
+   timer); each variant, fetched through ``GET /sweeps/{id}/result``,
+   is held against the same chain run solo on the card with that cutoff
+   (rtol 1e-3, atol 1e-4); a 2-node workflow (the chain at 2560 x 1801
+   x 2 rows, then ``UpstreamLoader -> Downsample -> Quantify`` on its
+   recon) must finish with the downstream fed the upstream's tensor on
+   the card; the first variant's OTLP and JSON traces must hold the
+   same spans, every kernel step's process span must carry flops, bytes
+   accessed and peak memory, its flops and bytes equal to the kernels'
+   ``cost()`` counts for the gang launch, and no critical SLO rule may
+   fire;
 4. chain parity: one small scan through the chain on the card with the
    kernels and on the CPU with the plain versions (rtol 1e-3, atol 1e-4);
 5. the serving path: granite-8b at full width (36 layers, d_model 4096,
@@ -77,10 +96,13 @@ Phases, each fatal on failure:
    in the kernel's tiled arithmetic), against its limit.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (the
-correction row also gives the gang launch, ``batched_*``); the
-last line is ``{"ok": true, "device": {...}}``.  Phases 3a-3c print one
-``{"service_gang": ...}``, ``{"streaming": ...}`` and
-``{"stream_resume": ...}`` line each.  Without a CUDA device,
+correction row also gives the gang launch, ``batched_*``, and the
+spectrum-scale row the per-member launch of a 4-variant sweep); the
+last line is ``{"ok": true, "device": {...}}``.  Phases 3a-3d print one
+``{"service_gang": ...}``, ``{"streaming": ...}``,
+``{"stream_resume": ...}`` and ``{"http_service": ...}`` line each.
+Every bound is computed from the kernels' own ``cost()`` counts, the
+numbers the service's process spans carry.  Without a CUDA device,
 or without the repository's ``src/repro_torch`` beside this file, it
 exits non-zero and prints no result.
 
@@ -142,12 +164,6 @@ SERVE = {"arch": "granite-8b", "requests": 8, "slots": 4,
 SPECTRUM_ROUNDS = 5
 #: decode steps under torch.profiler after the serving run
 PROFILED_STEPS = 3
-#: least fp32 work of backprojection: all slices share the geometry, so
-#: the position step and the fraction (2) count once per (pixel, angle)
-#: whose ray lands on the detector, and the lerp a + f(b - a) (3, the
-#: multiply-add counted as 2) and the accumulation (1) once per slice
-BP_FLOPS_PER_PAIR = 2
-BP_FLOPS_PER_UPDATE = 4
 #: image rows at which the backprojection kernel is held against its own
 #: arithmetic (``backproject_tiled_ref``): the edges and the centre
 BP_TILED_ROWS = [0, 5, 1280, 2555]
@@ -166,6 +182,13 @@ STREAM_SLABS = (16, 128)
 RESUME_SLABS = (128, 256)
 #: seconds a streaming phase waits for the job to take up a slab
 STREAM_WAIT_S = 300
+#: phase 3d: the sweep (rows per variant cut to 4; its variants and the
+#: solo runs they are held against share one simulated scan) and the
+#: workflow's chain
+SWEEP = {"cutoffs": [1.0, 0.8, 0.6, 0.4], "n_rows": 4}
+WORKFLOW_ROWS = 2
+#: seconds phase 3d waits for the sweep or the workflow
+HTTP_WAIT_S = 600
 
 
 def fail(msg: str) -> None:
@@ -180,6 +203,12 @@ def bound_ms(n_bytes: float, flops: float,
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def work_bound(work: dict, peak_flops: float = PEAK_FP32_FLOPS
+               ) -> tuple[float, str]:
+    """:func:`bound_ms` of a kernel's ``cost()`` counts."""
+    return bound_ms(work["bytes"], work["flops"], peak_flops)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -210,7 +239,9 @@ def bp_slice_sweep() -> dict:
 
     import torch
     from repro_torch.kernels import build
-    from repro_torch.kernels.backproject.kernel import backproject_cuda
+    from repro_torch.kernels.backproject.kernel import (
+        backproject_cuda, rays_on_detector)
+    from repro_torch.kernels.backproject.kernel import cost as bp_cost
     from repro_torch.tomo import ParallelGeometry
 
     n_det, n_ang = MAIN["n_det"], MAIN["n_angles"]
@@ -252,6 +283,208 @@ def bp_slice_sweep() -> dict:
             ms[f"group_{g}"] = cuda_ms(launch, 3)
         result[n_sl] = ms
     return result
+
+
+def http_service_phase(dev, compare, wrappers, costs,
+                       rays_on_detector) -> dict:
+    """Phase 3d: ``PipelineService`` on the card driven over HTTP by
+    ``PipelineClient``: a 4-value cutoff sweep as one gang, a 2-node
+    workflow, and the first variant's telemetry.  Returns the phase's
+    numbers; fails on any check."""
+    import torch
+    from repro_torch.core import CudaTransport, PluginRunner
+    from repro_torch.kernels.sino_filter.ref import make_filter
+    from repro_torch.service import PipelineClient, PipelineService
+    from repro_torch.tomo import ParallelGeometry, standard_chain
+    from repro_torch.tomo.plugins import simulated_scan
+
+    n_det, n_ang = MAIN["n_det"], MAIN["n_angles"]
+    cutoffs, n_rows = SWEEP["cutoffs"], SWEEP["n_rows"]
+    n_var = len(cutoffs)
+    svc = PipelineService(device=dev, n_workers=1, batch_identical=True,
+                          batch_max=n_var, cost_analysis=True)
+    host, port = svc.serve(host="127.0.0.1", port=0)
+    client = PipelineClient(f"http://{host}:{port}", timeout=HTTP_WAIT_S)
+    try:
+        # -- the sweep: 4 variants, one gang
+        # the scan the variants' loaders simulate (seed 0), held here so
+        # that they share it with each other and with the solo runs below
+        t0 = time.perf_counter()
+        scan = simulated_scan(n_det, n_ang, n_rows, device=dev)
+        simulate_s = time.perf_counter() - t0
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        reply = client.sweep(
+            standard_chain(n_det=n_det, n_angles=n_ang, n_rows=n_rows),
+            {"plugin": "sinogram_filter", "param": "cutoff",
+             "values": cutoffs}, metric="sharpness")
+        snap = client.wait_sweep(reply["sweep_id"], timeout=HTTP_WAIT_S)
+        sweep_wall_s = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        if snap["state"] != "done":
+            fail(f"http sweep: {snap['state']}: "
+                 f"{[v.get('error') for v in snap['variants']]}")
+        stats = client.stats()
+        if stats["gangs_run"] != 1 or stats["gang_fallbacks"] != 0:
+            fail(f"http sweep: {stats['gangs_run']} gangs, "
+                 f"{stats['gang_fallbacks']} fallbacks (want 1 and 0)")
+        first = reply["job_ids"][0]
+        trace = client.trace(first)
+        spans = [sp for sp in trace["spans"]
+                 if sp["name"].endswith(".process")]
+        step_launches = {}
+        for sp in spans:
+            if sp["attrs"].get("gang") != n_var:
+                fail(f"http sweep: {sp['name']} ran as a gang of "
+                     f"{sp['attrs'].get('gang')}, not {n_var}")
+            for key, n in sp["attrs"].items():
+                if key.startswith("launches."):
+                    name = key.split(".", 1)[1]
+                    step_launches[name] = step_launches.get(name, 0) + n
+        if step_launches != {k: 1 for k in wrappers}:
+            fail(f"http sweep: kernel launches over the gang's steps "
+                 f"{step_launches}, expected one of each")
+        if spans_of(spans, "sinogram_filter")["attrs"].get(
+                "launches.spectrum_scale") != 1:
+            fail("http sweep: the filter step did not launch the "
+                 "spectrum scale exactly once")
+        # the cost analysis runs each new step once before its timer
+        if launches != {k: 2 for k in wrappers}:
+            fail(f"http sweep: launches over the sweep {launches}, "
+                 f"expected 2 of each (the cost run and the step)")
+        process_s = sum(sp["end"] - sp["start"] for sp in spans)
+        for jid in reply["job_ids"]:
+            simulate_s += sum(
+                sp["end"] - sp["start"] for sp in client.trace(jid)["spans"]
+                if sp["name"] == "plugin.synthetic_tomo_loader.setup")
+        # -- telemetry of the first variant
+        otlp = client.trace(first, otlp=True)
+        n_otlp = sum(len(ss["spans"]) for rs in otlp["resourceSpans"]
+                     for ss in rs["scopeSpans"])
+        if n_otlp != len(trace["spans"]):
+            fail(f"http telemetry: OTLP holds {n_otlp} spans, the JSON "
+                 f"trace {len(trace['spans'])}")
+        geom = ParallelGeometry(n_ang, n_det, n_rows)
+        theta = torch.from_numpy(geom.angles.astype(np.float32)).to(dev)
+        rays = rays_on_detector(torch.cos(theta), torch.sin(theta), n_det,
+                                n_det)
+        # the variants simulate one scan (seed 0), so their dark and flat
+        # agree and the correction takes them once; their filters differ,
+        # so the spectrum scale takes one row per variant
+        want_cost = {
+            "dark_flat_correction": costs["correction"](
+                n_var * n_ang, n_rows * n_det, 2),
+            "sinogram_filter": costs["spectrum_scale"](
+                n_var * n_rows * n_ang, make_filter(n_det).shape[0], n_var),
+            "fbp_recon": costs["backprojection"](
+                n_var * n_rows, n_ang, n_det, n_det, rays)}
+        step_costs = {}
+        for plugin, want in want_cost.items():
+            attrs = spans_of(spans, plugin)["attrs"]
+            if not all(k in attrs for k in ("flops", "bytes_accessed",
+                                            "peak_memory")):
+                fail(f"http telemetry: {plugin}'s process span lacks cost "
+                     f"attributes: {sorted(attrs)}")
+            if (attrs["flops"], attrs["bytes_accessed"]) != (
+                    want["flops"], want["bytes"]):
+                fail(f"http telemetry: {plugin}'s span reads flops "
+                     f"{attrs['flops']} bytes {attrs['bytes_accessed']}, "
+                     f"the kernel's cost() {want}")
+            step_costs[plugin] = {k: attrs.get(k) for k in (
+                "flops", "bytes_accessed", "peak_memory")}
+        metrics_text = client.metrics()
+        slo = client.slo()
+        if "jobs_completed" not in metrics_text:
+            fail("http telemetry: /metrics has no jobs_completed")
+        if slo["critical_firing"]:
+            fail(f"http telemetry: critical SLO rules fire: "
+                 f"{slo['critical_firing']}")
+        ready = client.health(ready=True)
+        # -- the stacked result, held against solo runs on the card
+        t0 = time.perf_counter()
+        stacked = client.sweep_result(reply["sweep_id"])
+        download_s = time.perf_counter() - t0
+        if stacked.shape != (n_var, n_rows, n_det, n_det):
+            fail(f"http sweep: result shape {stacked.shape}")
+        errs = []
+        for k, cutoff in enumerate(cutoffs):
+            pl = standard_chain(n_det=n_det, n_angles=n_ang, n_rows=n_rows,
+                                device=dev)
+            pl.entries[0].params["scan"] = scan
+            pl.entries[3].params["cutoff"] = cutoff
+            r = PluginRunner(pl, CudaTransport(dev))
+            want = r.run()["recon"].backing
+            errs.append(compare(f"http sweep: variant {k} (cutoff "
+                                f"{cutoff}) against its solo run",
+                                torch.from_numpy(stacked[k]).to(dev), want,
+                                1e-3, 1e-4))
+            del r, want
+        del stacked, scan
+        # -- the workflow: the chain, then downsample + quantify
+        down = {"version": 1, "plugins": [
+            {"plugin": "upstream_loader",
+             "params": {"data": {"from_job": "recon", "dataset": "recon"}},
+             "out_datasets": ["vol"]},
+            {"plugin": "downsample", "params": {"factor": 2},
+             "in_datasets": ["vol"], "out_datasets": ["small"]},
+            {"plugin": "quantify", "in_datasets": ["small"],
+             "out_datasets": ["stats"]},
+            {"plugin": "hdf5_saver", "in_datasets": ["stats"]}]}
+        t0 = time.perf_counter()
+        wf = client.workflow({
+            "recon": {"process_list": standard_chain(
+                n_det=n_det, n_angles=n_ang, n_rows=WORKFLOW_ROWS, seed=1)},
+            "stats": {"process_list": down}}, workflow_id="wf-chip")
+        wsnap = client.wait_workflow(wf["workflow_id"], timeout=HTTP_WAIT_S)
+        workflow_s = time.perf_counter() - t0
+        if wsnap["state"] != "done":
+            fail(f"http workflow: {wsnap['state']}: {wsnap}")
+        fed = svc.queue.job("wf-chip/stats").process_list.entries[0] \
+            .params["data"]
+        upstream, _ = svc.result_dataset("wf-chip/recon", "recon")
+        if not (isinstance(fed, torch.Tensor) and fed.device.type == "cuda"
+                and fed is upstream.backing):
+            fail(f"http workflow: the downstream read {type(fed)} on "
+                 f"{getattr(fed, 'device', None)}, not the upstream's "
+                 f"tensor on the card")
+        stats_out = client.result("wf-chip/stats")
+        if stats_out.shape != (WORKFLOW_ROWS, 4) or \
+                not np.isfinite(stats_out).all():
+            fail(f"http workflow: stats {stats_out.shape}")
+    finally:
+        svc.stop()
+    return {
+        "sweep": {"variants": n_var, "cutoffs": cutoffs,
+                  "shape": [n_var, n_rows, n_det, n_det],
+                  "wall_s": sweep_wall_s,
+                  "process_s": process_s,
+                  "variants_per_s": n_var / process_s,
+                  "step_s": {sp["attrs"]["plugin"]: sp["end"] - sp["start"]
+                             for sp in spans},
+                  "simulate_s": simulate_s,
+                  "step_launches": step_launches,
+                  "launches_with_cost_runs": launches,
+                  "gang_fallbacks": stats["gang_fallbacks"],
+                  "max_abs_err_vs_solo": errs,
+                  "best_variant": snap["best_variant"],
+                  "result_mb": n_var * n_rows * n_det * n_det * 4 / 1e6,
+                  "result_download_s": download_s,
+                  "result_mb_per_s": n_var * n_rows * n_det * n_det * 4
+                  / 1e6 / download_s},
+        "telemetry": {"spans": len(trace["spans"]), "otlp_spans": n_otlp,
+                      "step_costs": step_costs, "ready": ready["ready"],
+                      "slo_firing": slo["firing"]},
+        "workflow": {"n_rows": WORKFLOW_ROWS, "wall_s": workflow_s,
+                     "state": wsnap["state"]}}
+
+
+def spans_of(spans: list, plugin: str) -> dict:
+    """The process span of ``plugin`` among one job's process spans."""
+    for sp in spans:
+        if sp["name"] == f"plugin.{plugin}.process":
+            return sp
+    fail(f"no process span of {plugin}")
 
 
 def jax_layout_params(cfg, rng) -> dict:
@@ -335,23 +568,29 @@ def main() -> None:
     from repro_torch.obs import MetricsRegistry
     from repro_torch.service import (CheckpointStore, CompileCache, JobQueue,
                                      JobState, PipelineScheduler)
-    from repro_torch.kernels.backproject.kernel import backproject_cuda
+    from repro_torch.kernels.backproject.kernel import (
+        backproject_cuda, rays_on_detector)
+    from repro_torch.kernels.backproject.kernel import cost as bp_cost
     from repro_torch.kernels.backproject.ref import (backproject_ref,
                                                      backproject_tiled_ref)
     from repro_torch.kernels.correction.kernel import correct_cuda
+    from repro_torch.kernels.correction.kernel import cost as corr_cost
     from repro_torch.kernels.correction.ref import (correct_batched_ref,
                                                     correct_ref)
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import \
+        cost as flash_cost
     from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.kernels.flash_attention.ref import (mha_ref,
                                                          mha_tiled_ref)
     from repro_torch.kernels.sino_filter.kernel import scale_spectrum_cuda
+    from repro_torch.kernels.sino_filter.kernel import cost as sf_cost
     from repro_torch.kernels.sino_filter.ops import filter_sino
-    from repro_torch.kernels.sino_filter.ref import (filter_sino_ref,
-                                                     make_filter,
-                                                     scale_spectrum_ref)
+    from repro_torch.kernels.sino_filter.ref import (
+        filter_sino_batched_ref, filter_sino_ref, make_filter,
+        scale_spectrum_batched_ref, scale_spectrum_ref)
     from repro_torch.models import build_model, transformer
     from repro_torch.models.convert import params_from_jax
     from repro_torch.tomo import (ParallelGeometry, phantom_stack,
@@ -395,9 +634,7 @@ def main() -> None:
     zeros = torch.from_numpy(np.zeros((1, n_rows, n_det), np.uint16)).to(dev)
     if not torch.isfinite(correct_cuda(zeros, dead, dead)).all():
         fail("correction: flat == dark gives non-finite output")
-    # per pixel: two subtractions, a division, three clamps and a log
-    b, by = bound_ms(raw.numel() * (2 + 4) + 2 * dark.numel() * 4,
-                     raw.numel() * 7)
+    b, by = work_bound(corr_cost(n_ang, n_rows * n_det, raw.element_size()))
     rows.append({
         "name": "correction", "route": "cuda",
         "source": f"{src}/correction.cu",
@@ -432,9 +669,9 @@ def main() -> None:
             lambda: correct_cuda(braw, bdark, bflat, counts), 20),
         "batched_plain_ms": cuda_ms(
             lambda: correct_batched_ref(braw, bdark, bflat, counts), 10),
-        "batched_bound_ms": bound_ms(
-            braw.numel() * (2 + 4) + 2 * bdark.numel() * 4,
-            braw.numel() * 7)[0]})
+        "batched_bound_ms": work_bound(corr_cost(
+            jobs * n_ang, GANG["n_rows"] * n_det, braw.element_size(),
+            jobs))[0]})
     del raw, dark, flat, dead, zeros, braw, bdark, bflat, got
 
     filt_np = make_filter(n_det, "shepp")
@@ -450,14 +687,45 @@ def main() -> None:
                   1e-5, 1e-5)
     compare("sino filter", filter_sino(sino, filt),
             filter_sino_ref(sino, filt), 1e-5, 1e-5)
-    b, by = bound_ms(spec.numel() * 8 * 2 + nf * 4, spec.numel() * 2)
+    b, by = work_bound(sf_cost(*spec.shape))
+    # the sweep of phase 3d at the same rows: 4 variants of 4 rows, one
+    # filter row (cutoff) per variant, one launch; each member equal, bit
+    # for bit, to the plain version and to a launch for it alone
+    n_var = len(SWEEP["cutoffs"])
+    nyq = torch.linspace(0.0, 1.0, nf, device=dev)
+    filts = torch.stack([filt * (nyq <= c) for c in SWEEP["cutoffs"]])
+    counts = [spec.shape[0] // n_var] * n_var
+    got = scale_spectrum_cuda(spec, filts, counts)
+    if not torch.equal(got, scale_spectrum_batched_ref(spec, filts, counts)):
+        fail("spectrum scale, per-member launch: differs from "
+             "scale_spectrum_batched_ref")
+    for j, part in enumerate(torch.split(spec, counts)):
+        if not torch.equal(got[j * counts[0]:(j + 1) * counts[0]],
+                           scale_spectrum_cuda(part.contiguous(),
+                                               filts[j])):
+            fail(f"spectrum scale: member {j} of the per-member launch "
+                 f"differs from a launch for that member alone")
+    sweep_counts = [SWEEP["n_rows"]] * n_var
+    berr = compare("sino filter, per-member launch",
+                   filter_sino(sino.view(n_rows, n_ang, n_det), filts,
+                               counts=sweep_counts),
+                   filter_sino_batched_ref(sino.view(n_rows, n_ang, n_det),
+                                           filts, sweep_counts),
+                   1e-5, 1e-5)
+    per_member = filts.view(n_var, 1, nf)
     # the kernel and `spec * filt` are within a few percent of each
-    # other: time them in alternating rounds and keep every round's median
-    rounds = {"kernel": [], "library": []}
+    # other: time them in alternating rounds and keep every round's
+    # median; the same for the per-member launch and its broadcast
+    rounds = {"kernel": [], "library": [], "batched_kernel": [],
+              "batched_library": []}
     for _ in range(SPECTRUM_ROUNDS):
         rounds["kernel"].append(
             cuda_ms(lambda: scale_spectrum_cuda(spec, filt), 20))
         rounds["library"].append(cuda_ms(lambda: spec * filt, 20))
+        rounds["batched_kernel"].append(
+            cuda_ms(lambda: scale_spectrum_cuda(spec, filts, counts), 20))
+        rounds["batched_library"].append(cuda_ms(
+            lambda: spec.view(n_var, -1, nf) * per_member, 20))
     print(json.dumps({"spectrum_scale_rounds_ms": rounds}))
     rows.append({
         "name": "spectrum_scale", "route": "cuda",
@@ -467,8 +735,16 @@ def main() -> None:
         "ms": statistics.median(rounds["kernel"]),
         "plain_ms": cuda_ms(lambda: scale_spectrum_ref(spec, filt), 20),
         "bound_ms": b, "bound_by": by,
-        "library_ms": statistics.median(rounds["library"])})
-    del sino, spec
+        "library_ms": statistics.median(rounds["library"]),
+        "batched_shape": list(spec.shape), "batched_members": n_var,
+        "batched_max_abs_err": berr,
+        "batched_ms": statistics.median(rounds["batched_kernel"]),
+        "batched_plain_ms": cuda_ms(
+            lambda: scale_spectrum_batched_ref(spec, filts, counts), 20),
+        "batched_bound_ms": work_bound(sf_cost(*spec.shape, n_var))[0],
+        "batched_library_ms": statistics.median(
+            rounds["batched_library"])})
+    del sino, spec, got
 
     geom = ParallelGeometry(n_ang, n_det, n_rows)
     sino = torch.randn((n_rows, n_ang, n_det), generator=gen, device=dev)
@@ -484,20 +760,11 @@ def main() -> None:
         backproject_tiled_ref(sino, angles, n_det, rows=BP_TILED_ROWS),
         *BP_TILED_TOL)
     del got
-    # (pixel, angle) pairs whose ray lands on the detector, t in (-1, D);
-    # out_size == n_det, so the image centre c is also the detector centre
-    c = (n_det - 1) / 2.0
-    xs = torch.arange(n_det, dtype=torch.float32, device=dev) - c
-    inside = 0
-    for a0 in range(0, n_ang, 8):
-        t = (xs[None, None, :] * cos_t[a0:a0 + 8, None, None]
-             + xs[None, :, None] * sin_t[a0:a0 + 8, None, None] + c)
-        inside += int(((t > -1.0) & (t < n_det)).sum())
-    del t
+    # (pixel, angle) pairs whose ray lands on the detector, t in (-1, D)
+    inside = rays_on_detector(cos_t, sin_t, n_det, n_det)
     updates = inside * n_rows
-    bp_bytes = sino.numel() * 4 + n_rows * n_det * n_det * 4 + 2 * n_ang * 4
-    bp_flops = inside * BP_FLOPS_PER_PAIR + updates * BP_FLOPS_PER_UPDATE
-    b, by = bound_ms(bp_bytes, bp_flops)
+    bp_work = bp_cost(n_rows, n_ang, n_det, n_det, inside)
+    b, by = work_bound(bp_work)
     rows.append({
         "name": "backprojection", "route": "cuda",
         "source": f"{src}/backproject.cu",
@@ -509,7 +776,8 @@ def main() -> None:
                             2, warmup=0),
         "bound_ms": b, "bound_by": by, "library_ms": None})
     print(json.dumps({"backprojection": {
-        "pairs_on_detector": inside, "updates": updates, "flops": bp_flops,
+        "pairs_on_detector": inside, "updates": updates,
+        "flops": bp_work["flops"],
         "bound_ms": b, "ms": rows[-1]["ms"],
         "g_updates_per_s": updates / rows[-1]["ms"] / 1e6,
         "max_abs_err_vs_tiled": tiled_err}}))
@@ -536,12 +804,9 @@ def main() -> None:
                     flash_attention_cuda(q32, k32, v32, causal=causal),
                     mha_ref(q32, k32, v32, causal=causal), 2e-5, 2e-5)
     del q32, k32, v32
-    fb, fhq, _, fs, fd = FLASH_MAIN
-    # each input read once and the output written once; causal pairs
-    # (r, c <= r) cost 2D operations for q.k and 2D for p.v
-    flash_flops = 4 * fb * fhq * fd * fs * (fs + 1) / 2
-    b, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
-                     flash_flops, PEAK_BF16_FLOPS)
+    flash_work = flash_cost(*FLASH_MAIN, q.element_size())
+    flash_flops = flash_work["flops"]
+    b, by = work_bound(flash_work, PEAK_BF16_FLOPS)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows.append({
         "name": "flash_attention", "route": "cuda",
@@ -812,6 +1077,15 @@ def main() -> None:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     del runs, first, second, job, sched, recon3, frames, scan
+    torch.cuda.empty_cache()
+
+    # -- 3d. the HTTP service on the card: a sweep, a workflow, telemetry
+    http_report = http_service_phase(
+        dev, compare, wrappers,
+        costs={"correction": corr_cost, "spectrum_scale": sf_cost,
+               "backprojection": bp_cost},
+        rays_on_detector=rays_on_detector)
+    print(json.dumps({"http_service": http_report}))
     torch.cuda.empty_cache()
 
     # -- 4. chain parity: kernels on the card vs plain versions on the CPU

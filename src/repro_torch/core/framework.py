@@ -39,6 +39,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..kernels.tally import tally
 from .dataset import DataSet
 from .plugin import BaseLoader, BasePlugin, BaseSaver, PluginData
 from .process_list import ProcessList
@@ -253,8 +254,15 @@ class PluginRunner:
             return False
         if len(group) == 1:
             p = group[0]
-            with self.profiler.timer(p.name, "process"):
+            # cost analysis (when the transport offers it) runs BEFORE
+            # the timer, so its run never counts in the span it annotates
+            cost = (self.transport.plugin_cost(p)
+                    if hasattr(self.transport, "plugin_cost") else None)
+            with self.profiler.timer(p.name, "process",
+                                     **(cost or {})) as timer, \
+                    tally() as launched:
                 self.transport.run_plugin(p)
+            timer.span.attrs.update(launched.launch_attrs())
         else:
             label = "+".join(p.name for p in group)
             with self.profiler.timer(label, "process", fused=True):

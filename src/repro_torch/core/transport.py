@@ -30,8 +30,13 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import FlopCounterMode
 
 from ..device import resolve_device
+from ..kernels.tally import tally
 from ..obs.trace import current_trace
 from .chunking import DEFAULT_CACHE_BYTES, naive_chunks, optimise_chunks
 from .dataset import DataSet
@@ -181,6 +186,7 @@ class LocalCompileCache:
 
     def __init__(self):
         self._entries: dict = {}
+        self._costs: dict = {}
         self.hits = 0
         self.misses = 0
 
@@ -200,9 +206,59 @@ class LocalCompileCache:
                                  and key else "plugin"})
             return fn
 
+    def cost(self, key, measure):
+        """The cost profile of step ``key``, ``measure()`` on a miss."""
+        if key not in self._costs:
+            self._costs[key] = measure()
+        return self._costs[key]
+
     def stats(self) -> dict[str, Any]:
         return {"hits": self.hits, "misses": self.misses,
                 "entries": len(self._entries)}
+
+
+class _PeakMemory(TorchDispatchMode):
+    """Peak bytes on ``device`` of the tensors that the ops run under it
+    allocate and that are alive at once.  A storage counts from the op
+    that returns it until it is freed (seen at the next op); a storage
+    that existed before (an input, or what a view of it shares) never
+    counts, nor does what a library op allocates and frees inside itself
+    (cuFFT's work area).  Dispatch modes are per thread, so what other
+    threads allocate meanwhile never enters the reading."""
+
+    def __init__(self, device: torch.device):
+        super().__init__()
+        self.device = device
+        self._seen: dict[int, tuple[StorageWeakRef, int]] = {}
+        self.now = 0
+        self.peak = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        for cdata, (ref, n) in list(self._seen.items()):
+            if ref.expired():
+                del self._seen[cdata]
+                self.now -= n
+        for t in tree_leaves((args, kwargs)):
+            self._see(t, count=False)
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            self._see(t, count=True)
+        self.peak = max(self.peak, self.now)
+        return out
+
+    def _see(self, t, count: bool) -> None:
+        if not isinstance(t, torch.Tensor):
+            return
+        st = t.untyped_storage()
+        ref = StorageWeakRef(st)
+        if ref.cdata in self._seen:
+            return
+        dev = t.device
+        n = st.nbytes() if count and dev.type == self.device.type and (
+            self.device.index is None or dev.index == self.device.index) \
+            else 0
+        self._seen[ref.cdata] = (ref, n)
+        self.now += n
 
 
 # ======================================================================
@@ -250,10 +306,15 @@ class CudaTransport(Transport):
     name = "cuda"
 
     def __init__(self, device: str | torch.device = "cuda",
-                 compile_cache=None):
+                 compile_cache=None, cost_analysis: bool = False):
         super().__init__(device)
         self.compile_cache = (compile_cache if compile_cache is not None
                               else LocalCompileCache())
+        #: when True, :meth:`plugin_cost` runs each distinct step once
+        #: per compile cache (once per process in the service) before its
+        #: timer to count its work and memory (per-step cost profiles on
+        #: the ``process`` spans)
+        self.cost_analysis = cost_analysis
 
     def allocate(self, ds: DataSet, now: Pattern, next_: Pattern | None
                  ) -> None:
@@ -292,35 +353,24 @@ class CudaTransport(Transport):
 
     def _batch_fn(self, plugin: BasePlugin):
         """Gang step ``(all_consts, members) -> per-member outs`` for
-        :meth:`run_plugin_batch`.  A per-frame plugin (``n_frames == 1``)
-        runs ONCE over the members' frames stacked along the frame axis:
+        :meth:`run_plugin_batch`: a per-frame plugin (``n_frames == 1``)
+        runs ONCE over the members' frames stacked along the frame axis,
         with the shared constants when every member's agree, or through
         the plugin's ``process_frames_batched`` hook, which takes every
-        member's constants and frame count, when they differ.  Otherwise
-        each member runs the single step with its own constants, so no
-        member ever sees another's."""
-        single = self._plugin_fn(plugin)
+        member's constants and frame count, when they differ
+        (:meth:`_gang_check` refuses any other gang)."""
         in_pats = [pd.pattern for pd in plugin.in_data]
         out_pats = [pd.pattern for pd in plugin.out_data]
         out_shapes = [pd.dataset.shape for pd in plugin.out_data]
         out_dtypes = [torch_dtype(pd.dataset.dtype) for pd in plugin.out_data]
-        m = plugin.in_data[0].n_frames if plugin.in_data else 1
-
-        def solo(all_consts, members):
-            return [single(c, *arrays)
-                    for c, arrays in zip(all_consts, members)]
 
         def step(all_consts, members):
-            shared = _same_consts(all_consts)
-            if m != 1 or (not shared
-                          and plugin.process_frames_batched is None):
-                return solo(all_consts, members)
             frames = [[p.to_frames(a) for p, a in zip(in_pats, arrays)]
                       for arrays in members]
             counts = [f[0].shape[0] for f in frames]
             stacked = [torch.cat(col) for col in zip(*frames)]
             del frames
-            if shared:
+            if _same_consts(all_consts):
                 res = _as_list(_with_consts(
                     plugin, all_consts[0]).process_frames(stacked))
             else:
@@ -401,26 +451,46 @@ class CudaTransport(Transport):
         self._sync()
         return outs
 
-    def run_plugin_batch(self, plugins: Sequence[BasePlugin]) -> None:
-        """Gang execution: the SAME plugin step of several jobs as one
-        call over all members' datasets (the JAX package vmaps its step
-        over a stacked job axis; here the job axis folds into the frame
-        axis, so a hand-written kernel launches once for the gang).
-        Every plugin must agree on :meth:`_plugin_key`; a mismatch raises
-        :class:`GangSignatureMismatch` and the scheduler runs the members
-        solo."""
+    def _gang_check(self, plugins: Sequence[BasePlugin],
+                    all_consts: Sequence[dict[str, Any]]) -> tuple:
+        """The gang's step key; raises :class:`GangSignatureMismatch`
+        when the members cannot run as one call: their step keys
+        (:meth:`_plugin_key`) differ, the plugin takes several frames a
+        call, or their constants differ and the plugin has no
+        ``process_frames_batched`` hook."""
         p0 = plugins[0]
-        all_consts = [_device_consts(p, self.device) for p in plugins]
         k0 = self._plugin_key(p0, all_consts[0])
         for p, c in zip(plugins[1:], all_consts[1:]):
             if self._plugin_key(p, c) != k0:
                 raise GangSignatureMismatch(
                     f"run_plugin_batch: plugin {p.name} does not match "
                     f"the batch signature of {p0.name}")
+        if p0.in_data and p0.in_data[0].n_frames != 1:
+            raise GangSignatureMismatch(
+                f"run_plugin_batch: {p0.name} takes "
+                f"{p0.in_data[0].n_frames} frames a call; only per-frame "
+                f"plugins fold the job axis into the frame axis")
+        if p0.process_frames_batched is None \
+                and not _same_consts(all_consts):
+            raise GangSignatureMismatch(
+                f"run_plugin_batch: the members' constants of {p0.name} "
+                f"differ and it has no process_frames_batched hook")
+        return k0
+
+    def run_plugin_batch(self, plugins: Sequence[BasePlugin]) -> None:
+        """Gang execution: the SAME plugin step of several jobs as one
+        call over all members' datasets (the JAX package vmaps its step
+        over a stacked job axis; here the job axis folds into the frame
+        axis, so a hand-written kernel launches once for the gang).  A
+        gang that cannot run as one call (:meth:`_gang_check`) raises
+        :class:`GangSignatureMismatch` and the scheduler runs the
+        members solo, counting it."""
+        all_consts = [_device_consts(p, self.device) for p in plugins]
+        k0 = self._gang_check(plugins, all_consts)
         for p in plugins:
             self._check_driver(p)
         step = self.compile_cache.get_or_build(
-            ("batch", k0), lambda: self._batch_fn(p0))
+            ("batch", k0), lambda: self._batch_fn(plugins[0]))
         members = [self._device_in(p) for p in plugins]
         outs = step(all_consts, members)
         del members
@@ -429,6 +499,64 @@ class CudaTransport(Transport):
                 pd.dataset.backing = t
             self._release(p, [p])
         self._sync()
+
+    def plugin_cost(self, *plugins: BasePlugin) -> dict[str, float] | None:
+        """Work and memory of one plugin step, or of the gang step of
+        several plugins: ``flops`` and ``bytes_accessed`` (and ``bytes``,
+        the reference's legacy alias) are the kernels' ``cost()`` counts
+        for what the step computes, whichever route computed it, plus
+        what ``FlopCounterMode`` counts of its library ops;
+        ``peak_memory`` is the most memory on the transport's device that
+        the tensors the step allocates hold at once (:class:`_PeakMemory`).
+
+        Measured by one run of the step before its timer starts (the
+        counterpart of the JAX package's ahead-of-time
+        ``cost_analysis``), cached per step key in the compile cache, so
+        the transports that share one cache (the service's jobs) measure
+        each distinct step once.  None when ``cost_analysis`` is off or
+        the step cannot be costed: telemetry never decides how the step
+        itself runs."""
+        if not self.cost_analysis:
+            return None
+        try:
+            all_consts = [_device_consts(p, self.device) for p in plugins]
+            if len(plugins) == 1:
+                key = ("cost", self._plugin_key(plugins[0], all_consts[0]))
+            else:
+                key = ("cost", len(plugins), _same_consts(all_consts),
+                       self._gang_check(plugins, all_consts))
+        except Exception:          # noqa: BLE001 — telemetry only
+            return None
+
+        def measure():
+            try:
+                return self._measure(plugins, all_consts)
+            except Exception:      # noqa: BLE001 — telemetry only
+                return None
+
+        return self.compile_cache.cost(key, measure)
+
+    def _measure(self, plugins: Sequence[BasePlugin],
+                 all_consts: list[dict[str, Any]]) -> dict[str, float]:
+        with tally(costs=True) as t, FlopCounterMode(display=False) as fc, \
+                _PeakMemory(self.device) as mem:
+            if len(plugins) == 1:
+                p = plugins[0]
+                step = self.compile_cache.get_or_build(
+                    self._plugin_key(p, all_consts[0]),
+                    lambda: self._plugin_fn(p))
+                outs = step(all_consts[0], *self._device_in(p))
+            else:
+                step = self.compile_cache.get_or_build(
+                    ("batch", self._plugin_key(plugins[0], all_consts[0])),
+                    lambda: self._batch_fn(plugins[0]))
+                outs = step(all_consts,
+                            [self._device_in(p) for p in plugins])
+            del outs
+        self._sync()
+        return {"flops": t.flops + float(fc.get_total_flops()),
+                "bytes": t.bytes, "bytes_accessed": t.bytes,
+                "peak_memory": float(mem.peak)}
 
     def run_fused(self, plugins: Sequence[BasePlugin]) -> list[Any]:
         """Run a linear run of plugins as one step: intermediates stay

@@ -7,13 +7,23 @@ from typing import Optional, Sequence
 
 import torch
 
-from .. import build
+from .. import build, tally
 from .ref import EPS, HI
 
 _ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_longlong, ctypes.c_longlong,
                                   ctypes.c_longlong, ctypes.c_float,
                                   ctypes.c_float, ctypes.c_void_p)
 _ENTRY = {torch.uint16: "correct_u16", torch.float32: "correct_f32"}
+
+
+def cost(frames: int, plane: int, raw_itemsize: int,
+         members: int = 1) -> dict[str, float]:
+    """Least work of one call: every raw pixel read and its float32
+    result written once, each member's dark and flat read once; per
+    pixel two subtractions, a division, three clamps and a log."""
+    return {"flops": float(frames * plane * 7),
+            "bytes": float(frames * plane * (raw_itemsize + 4)
+                           + 2 * members * plane * 4)}
 
 
 def correct_cuda(raw: torch.Tensor, dark: torch.Tensor, flat: torch.Tensor,
@@ -49,7 +59,8 @@ def correct_cuda(raw: torch.Tensor, dark: torch.Tensor, flat: torch.Tensor,
              build.ptr(out), None if offsets is None else build.ptr(offsets),
              j, max(counts), y * x, eps, hi, build.stream(raw.device))
     build.check(err, "correct")
-    correct_cuda.launches += 1
+    tally.note("correction",
+               lambda: cost(f, y * x, raw.element_size(), j), correct_cuda)
     return out
 
 

@@ -6,7 +6,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from .kernel import correct_cuda
+from .. import tally
+from .kernel import correct_cuda, cost
 from .ref import EPS, HI, correct_batched_ref, correct_ref
 
 
@@ -31,6 +32,10 @@ def correct(raw: torch.Tensor, dark: torch.Tensor, flat: torch.Tensor,
                            flat.to(raw.device, torch.float32).contiguous(),
                            counts, eps, hi)
         return out.reshape(lead + (y, x))
+    y, x = raw.shape[-2:]
+    tally.note("correction", lambda: cost(
+        raw.numel() // max(y * x, 1), y * x, raw.element_size(),
+        1 if counts is None else len(counts)))
     if counts is not None:
         return correct_batched_ref(raw, dark, flat, counts, eps, hi)
     return correct_ref(raw, dark, flat, eps, hi)

@@ -14,6 +14,17 @@
 // Bound on the card: bytes.  Two multiplies per 16 bytes moved (8 read,
 // 8 written); the filter row (nf floats) stays in L1/L2.
 //
+// A gang of J scans (a parameter sweep's variants) takes one launch:
+// the spectrum holds member j's rows after member j - 1's and filt is
+// (J, nf), one filter row per member.  grid.y is the member, so a
+// thread knows its filter row without a search; each member's bins are
+// scaled by the multiply a launch for that member alone would make,
+// bit for bit.  Members of equal row counts (a sweep's variants share
+// one chain, so their shapes) pass a null offsets: member j's rows start
+// at j * max_rows, computed without a load, which would delay every
+// thread's address (one scan is J = 1).  Ragged members pass offsets[j],
+// member j's first row.
+//
 // Design: a streaming pass over the spectrum as one flat array of
 // rows * nf bins.  Each thread loads and stores one float4 (two bins, 16
 // bytes) with streaming cache hints: the spectrum passes through the
@@ -22,8 +33,10 @@
 // computed in 32-bit arithmetic (the wrapper raises at 2^31 bins).  The
 // grid covers the array once, one float4 per thread: on the H100 that
 // measured faster than a grid of a few blocks per SM striding over it
-// with several float4s per thread (PERF.md §6).  An odd bin count
-// leaves a scalar tail; pointers that are not 16-byte aligned take a
+// with several float4s per thread (PERF.md §6).  A float4 never spans
+// two members: a member whose bins start or end at an odd bin leaves
+// that bin to a scalar tail, done by the first two threads of the
+// member's first block.  Pointers that are not 16-byte aligned take a
 // scalar float2 pass.
 #include <cuda_runtime.h>
 
@@ -31,61 +44,101 @@ namespace {
 
 constexpr int THREADS = 256;
 
+// bins [first, end) of the member blockIdx.y, and its filter row; span
+// is the bins of a member of max_rows rows
+struct Member {
+    unsigned first, end;
+    const float* filt;
+};
+
+__device__ Member member(const long long* __restrict__ offsets,
+                         const float* __restrict__ filt, unsigned span,
+                         unsigned nf) {
+    const unsigned j = blockIdx.y;
+    if (offsets == nullptr) return {j * span, (j + 1) * span, filt + j * nf};
+    return {static_cast<unsigned>(offsets[j]) * nf,
+            static_cast<unsigned>(offsets[j + 1]) * nf, filt + j * nf};
+}
+
 __global__ void __launch_bounds__(THREADS)
 scale_spectrum_vec_kernel(const float4* __restrict__ spec,
                           const float* __restrict__ filt,
-                          float4* __restrict__ out, unsigned n4,
-                          unsigned nf) {
-    // float4 f holds bins 2f and 2f + 1
-    const unsigned f = blockIdx.x * THREADS + threadIdx.x;
-    if (f >= n4) return;
+                          float4* __restrict__ out,
+                          const long long* __restrict__ offsets,
+                          unsigned span, unsigned nf) {
+    const Member m = member(offsets, filt, span, nf);
+    if (blockIdx.x == 0 && threadIdx.x < 2 && m.end > m.first) {
+        // the scalar tail: a bin whose float4 the previous or next
+        // member shares (the head's thread takes a one-bin member)
+        const bool head = threadIdx.x == 0;
+        const unsigned i = head ? m.first : m.end - 1;
+        const bool odd = head ? (m.first & 1u) != 0
+                              : (m.end & 1u) != 0 &&
+                                    !(i == m.first && (m.first & 1u));
+        if (odd) {
+            const float f = __ldg(m.filt + i % nf);
+            const float2 x = __ldcs(reinterpret_cast<const float2*>(spec) + i);
+            __stcs(reinterpret_cast<float2*>(out) + i,
+                   make_float2(x.x * f, x.y * f));
+        }
+    }
+    // float4 f holds bins 2f and 2f + 1, both the member's
+    const unsigned f = (m.first + 1) / 2 + blockIdx.x * THREADS + threadIdx.x;
+    if (f >= m.end / 2) return;
     const unsigned c0 = 2u * f % nf;
     const unsigned c1 = c0 + 1 == nf ? 0 : c0 + 1;
     const float4 x = __ldcs(spec + f);
-    const float f0 = __ldg(filt + c0);
-    const float f1 = __ldg(filt + c1);
+    const float f0 = __ldg(m.filt + c0);
+    const float f1 = __ldg(m.filt + c1);
     __stcs(out + f, make_float4(x.x * f0, x.y * f0, x.z * f1, x.w * f1));
 }
 
 __global__ void __launch_bounds__(THREADS)
 scale_spectrum_scalar_kernel(const float2* __restrict__ spec,
                              const float* __restrict__ filt,
-                             float2* __restrict__ out, unsigned first,
-                             unsigned n, unsigned nf) {
-    const unsigned i = first + blockIdx.x * THREADS + threadIdx.x;
-    if (i >= n) return;
-    const float f = __ldg(filt + i % nf);
+                             float2* __restrict__ out,
+                             const long long* __restrict__ offsets,
+                             unsigned span, unsigned nf) {
+    const Member m = member(offsets, filt, span, nf);
+    const unsigned i = m.first + blockIdx.x * THREADS + threadIdx.x;
+    if (i >= m.end) return;
+    const float f = __ldg(m.filt + i % nf);
     const float2 x = __ldcs(spec + i);
     __stcs(out + i, make_float2(x.x * f, x.y * f));
 }
 
-unsigned blocks(unsigned work) { return (work + THREADS - 1) / THREADS; }
+unsigned blocks(unsigned long long work) {
+    return static_cast<unsigned>((work + THREADS - 1) / THREADS);
+}
 
 }  // namespace
 
+// spec/out (members' rows, nf) complex64, filt (n_members, nf) float32;
+// offsets (n_members + 1) int64 row offsets on the device, or null when
+// every member has max_rows rows (one scan: n_members 1); max_rows, the
+// most rows a member has, sizes the grid.
 extern "C" int scale_spectrum(const void* spec, const void* filt, void* out,
-                              long long rows, long long nf, void* stream) {
+                              const void* offsets, long long n_members,
+                              long long max_rows, long long nf,
+                              void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const unsigned n = static_cast<unsigned>(rows * nf);
     const unsigned f = static_cast<unsigned>(nf);
-    const auto* fl = static_cast<const float*>(filt);
-    unsigned first = 0;             // bins left to the scalar pass
+    const auto* off = static_cast<const long long*>(offsets);
+    const unsigned long long span = max_rows * nf;    // bins of a member
+    const dim3 members(1, static_cast<unsigned>(n_members));
     if ((reinterpret_cast<unsigned long long>(spec) |
          reinterpret_cast<unsigned long long>(out)) % 16 == 0) {
-        const unsigned n4 = n / 2;
-        if (n4 > 0) {
-            scale_spectrum_vec_kernel<<<blocks(n4), THREADS, 0, st>>>(
-                static_cast<const float4*>(spec), fl,
-                static_cast<float4*>(out), n4, f);
-            const cudaError_t err = cudaGetLastError();
-            if (err != cudaSuccess) return static_cast<int>(err);
-        }
-        first = 2 * n4;
-    }
-    if (first < n) {
-        scale_spectrum_scalar_kernel<<<blocks(n - first), THREADS, 0, st>>>(
-            static_cast<const float2*>(spec), fl, static_cast<float2*>(out),
-            first, n, f);
+        // at least one block per member, for the scalar tail
+        const dim3 grid(blocks(span / 2) > 0 ? blocks(span / 2) : 1,
+                        members.y);
+        scale_spectrum_vec_kernel<<<grid, THREADS, 0, st>>>(
+            static_cast<const float4*>(spec), static_cast<const float*>(filt),
+            static_cast<float4*>(out), off, static_cast<unsigned>(span), f);
+    } else {
+        const dim3 grid(blocks(span), members.y);
+        scale_spectrum_scalar_kernel<<<grid, THREADS, 0, st>>>(
+            static_cast<const float2*>(spec), static_cast<const float*>(filt),
+            static_cast<float2*>(out), off, static_cast<unsigned>(span), f);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,7 @@ import math
 import numpy as np
 import torch
 
-from .. import build
+from .. import build, tally
 
 #: head dims the kernel is compiled for (the reference's tests use 16,
 #: 32 and 64; every configuration of the repo uses 64 or 128)
@@ -15,6 +15,16 @@ HEAD_DIMS = (16, 32, 64, 128)
 _ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (
     ctypes.c_float, ctypes.c_void_p)
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def cost(b: int, hq: int, hkv: int, s: int, d: int, itemsize: int,
+         causal: bool = True) -> dict[str, float]:
+    """Least work of one call: q, k, v read and the output written once;
+    each (query, key) pair it attends (r, c <= r when causal) costs 2D
+    operations for q.k and 2D for p.v."""
+    pairs = s * (s + 1) / 2 if causal else s * s
+    return {"flops": float(4 * b * hq * d * pairs),
+            "bytes": float(itemsize * b * s * d * (2 * hq + 2 * hkv))}
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,7 +63,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              hkv, s, d, int(causal), int(q.dtype == torch.bfloat16), scale,
              build.stream(q.device))
     build.check(err, "flash_attention")
-    flash_attention_cuda.launches += 1
+    tally.note("flash_attention", lambda: cost(
+        b, hq, hkv, s, d, q.element_size(), causal), flash_attention_cuda)
     return out
 
 

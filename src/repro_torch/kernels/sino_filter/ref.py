@@ -2,6 +2,8 @@
 sinogram filtering for FBP, via rFFT along the detector axis."""
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 import torch
 
@@ -47,3 +49,40 @@ def filter_sino_ref(sino: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
     spec = torch.fft.rfft(sino, n=n_fft, dim=-1)
     out = torch.fft.irfft(scale_spectrum_ref(spec, filt), n=n_fft, dim=-1)
     return out[..., :n_det].to(sino.dtype)
+
+
+def member_rows(counts: Sequence[int], n_rows: int, n_members: int,
+                device: torch.device) -> torch.Tensor:
+    """The member of each row of a gang: member j's ``counts[j]`` rows
+    follow member j - 1's."""
+    counts = list(counts)
+    if sum(counts) != n_rows or len(counts) != n_members or \
+            min(counts, default=0) < 0:
+        raise ValueError(f"counts {counts} do not split {n_rows} rows over "
+                         f"{n_members} members")
+    return torch.repeat_interleave(
+        torch.arange(n_members, device=device),
+        torch.tensor(counts, device=device))
+
+
+def scale_spectrum_batched_ref(spec: torch.Tensor, filts: torch.Tensor,
+                               counts: Sequence[int]) -> torch.Tensor:
+    """A gang's (rows, NF) spectrum × each member's filter row of (J,
+    NF): member j's ``counts[j]`` rows after member j - 1's."""
+    rows = member_rows(counts, spec.shape[0], filts.shape[0], spec.device)
+    return spec * filts.to(spec.device, spec.real.dtype)[rows]
+
+
+def filter_sino_batched_ref(sino: torch.Tensor, filts: torch.Tensor,
+                            counts: Sequence[int]) -> torch.Tensor:
+    """A gang of sinogram stacks, (F, ..., n_det), filtered in one pass:
+    member j's ``counts[j]`` frames (after member j - 1's) by its own
+    filter ``filts[j]`` of (J, n_rfft_bins)."""
+    n_det = sino.shape[-1]
+    n_fft = 2 * (filts.shape[-1] - 1)
+    per_frame = int(np.prod(sino.shape[1:-1], dtype=np.int64))
+    spec = torch.fft.rfft(sino.reshape((-1, n_det)), n=n_fft, dim=-1)
+    scaled = scale_spectrum_batched_ref(
+        spec, filts, [c * per_frame for c in counts])
+    out = torch.fft.irfft(scaled, n=n_fft, dim=-1)
+    return out[..., :n_det].reshape(sino.shape).to(sino.dtype)

@@ -15,9 +15,14 @@ built once per process by ``kernels.build``; what this cache saves is
 the step's construction and the hit/miss accounting the service
 reports.
 
+The cache also keeps each step's cost profile
+(``CudaTransport.plugin_cost``), so with cost analysis on a distinct
+step is measured once per process, not once per job.
+
 Thread-safety: one build per key even under concurrent misses — losers
 of the build race block on the winner's per-key event rather than
-building twice.  :meth:`CompileCache.clear` bumps a generation counter
+building twice.  Cost measurements run one at a time, under their own
+lock.  :meth:`CompileCache.clear` bumps a generation counter
 so a build that was already in flight when the clear happened cannot
 re-insert its (now unwanted) entry afterwards.
 
@@ -60,6 +65,8 @@ class CompileCache:
         self._building: dict[Any, threading.Event] = {}
         self._lock = threading.Lock()
         self._generation = 0
+        self._costs: dict[Any, Any] = {}
+        self._cost_lock = threading.Lock()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -125,6 +132,15 @@ class CompileCache:
         finally:
             with self._lock:
                 self._building.pop(key).set()
+
+    def cost(self, key, measure: Callable[[], Any]):
+        """The cost profile of step ``key``: ``measure()`` on a miss,
+        run while no other measurement runs (a measurement is an extra
+        run of the step), then kept for every later caller."""
+        with self._cost_lock:
+            if key not in self._costs:
+                self._costs[key] = measure()
+            return self._costs[key]
 
     def clear(self) -> None:
         """Drop every cached step (counters are kept), including builds

@@ -38,12 +38,14 @@ import traceback
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from ..core.framework import PluginRunner
 from ..core.profiler import Profiler
 from ..core.transport import (GangSignatureMismatch, InMemoryTransport,
                               Transport)
 from ..device import resolve_device
+from ..kernels.tally import tally
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import use_trace
 from .checkpoint import CheckpointStore
@@ -293,11 +295,13 @@ class PipelineScheduler:
 
     # -- workflow upstream inputs (docs/workflows.md) -------------------
     def _upstream_array(self, from_job: str,
-                        dataset: str | None) -> np.ndarray:
+                        dataset: str | None) -> torch.Tensor | np.ndarray:
         """Resolve one upstream-result reference against the queue: the
-        upstream job's live runner datasets (in-process runs) or its
-        remote ``.npy`` (mixed deployments).  Raises UpstreamGone when
-        the upstream — or its result — is no longer reachable."""
+        upstream job's live runner dataset (in-process runs: its tensor
+        where the upstream left it, on the card for a ``CudaTransport``,
+        with no copy; other backings read to the host) or its remote
+        ``.npy`` (mixed deployments).  Raises UpstreamGone when the
+        upstream — or its result — is no longer reachable."""
         try:
             up = self.queue.job(from_job)
         except KeyError:
@@ -327,8 +331,10 @@ class PipelineScheduler:
             raise UpstreamGone(
                 f"upstream {from_job!r} has no dataset {name!r} "
                 f"(available: {sorted(runner.datasets)})")
-        return np.ascontiguousarray(
-            np.asarray(runner.transport.read(runner.datasets[name])))
+        ds = runner.datasets[name]
+        if isinstance(ds.backing, torch.Tensor):
+            return ds.backing
+        return np.ascontiguousarray(np.asarray(runner.transport.read(ds)))
 
     def _resolve_upstream(self, job: Job) -> None:
         """Materialise every upstream-result reference in the job's
@@ -606,27 +612,38 @@ class PipelineScheduler:
             can_batch = hasattr(transport, "run_plugin_batch")
             for _ in range(runners[0].n_steps):
                 groups = [r.begin_step() for r in runners]
+                batched = can_batch and len(groups[0]) == 1
+                # the gang step's cost, like a solo step's, is measured
+                # before its timer starts
+                cost = (transport.plugin_cost(*[g[0] for g in groups])
+                        if batched and hasattr(transport, "plugin_cost")
+                        else None)
                 t0 = time.time()
-                if can_batch and len(groups[0]) == 1:
-                    try:
-                        transport.run_plugin_batch([g[0] for g in groups])
-                    except GangSignatureMismatch as e:
-                        self._gang_fallback(jobs, groups[0][0].name, e)
+                with tally() as launched:
+                    if batched:
+                        try:
+                            transport.run_plugin_batch(
+                                [g[0] for g in groups])
+                        except GangSignatureMismatch as e:
+                            self._gang_fallback(jobs, groups[0][0].name, e)
+                            cost = None
+                            for g in groups:
+                                transport.run_plugin(g[0])
+                    else:
                         for g in groups:
-                            transport.run_plugin(g[0])
-                else:
-                    for g in groups:
-                        if len(g) > 1:
-                            transport.run_fused(g)
-                        else:
-                            transport.run_plugin(g[0])
+                            if len(g) > 1:
+                                transport.run_fused(g)
+                            else:
+                                transport.run_plugin(g[0])
                 t1 = time.time()
                 for job, r, g in zip(jobs, runners, groups):
                     # the batched call is one step over the
                     # whole gang — each member's trace gets the shared
-                    # wall, tagged with the gang size
+                    # wall, tagged with the gang size, the gang step's
+                    # cost and the kernel launches it made
                     r.profiler.record(g[0].name, "process", t0, t1,
-                                      gang=len(jobs))
+                                      gang=len(jobs), **(cost or {}),
+                                      **launched.launch_attrs())
                     r.complete_step()
                     job.plugin_index = r.current_step
                     if self.checkpoints is not None:

@@ -29,14 +29,18 @@ the server runs at submit time.  See ``docs/plugin-spec.md``.
 The port's registry is seeded from ``repro_torch.tomo``, whose plugins
 carry the JAX package's wire names, so every spec the JAX package's
 ``to_spec`` writes loads here and gives the same chain.  The port's
-loader has one parameter more, ``device`` (where it simulates a scan):
-a spec written here that sets it names a parameter the JAX package's
-``from_spec`` does not know.
+loader has one parameter more, ``device`` (where it simulates a scan).
+Where a job runs is the service's choice, as the mesh is the JAX
+package's, so ``to_spec`` leaves ``device`` out and ``from_spec(spec,
+device=...)`` sets it from the service's transport: a spec written here
+loads in the JAX package's ``from_spec`` too.
 """
 from __future__ import annotations
 
 import inspect
 from typing import Any, Iterable, Type
+
+import torch
 
 from ..core.plugin import BasePlugin, _is_jsonable
 from ..core.process_list import PluginEntry, ProcessList
@@ -122,12 +126,22 @@ def _str_list(v: Any, where: str, key: str) -> tuple[str, ...]:
     return tuple(v)
 
 
-def from_spec(spec: dict[str, Any]) -> ProcessList:
+#: parameters that say where a plugin computes, not what: never written
+#: to a spec, set by the service that loads one
+LOCAL_PARAMS = ("device",)
+
+
+def from_spec(spec: dict[str, Any],
+              device: str | torch.device | None = None) -> ProcessList:
     """Deserialise a spec v1 document into a :class:`ProcessList`.
 
     Args:
         spec: parsed JSON document (``{"version": 1, "plugins": [...]}``;
             a bare list of plugin entries is accepted too).
+        device: where the chain computes (the service's transport's
+            device): set as the ``device`` of every entry whose plugin
+            declares one, over any the spec gives.  None keeps the
+            spec's, or the plugin's default.
 
     Returns:
         the reconstructed ProcessList (NOT yet ``check()``-ed — the
@@ -183,7 +197,10 @@ def from_spec(spec: dict[str, Any]) -> ProcessList:
         if bad:
             raise WireError(f"{where} ({name}): non-JSON param value(s) "
                             f"for {bad}")
-        pl.add(cls, params=dict(params),
+        params = dict(params)
+        if device is not None and "device" in cls.parameters:
+            params["device"] = str(device)
+        pl.add(cls, params=params,
                in_datasets=_str_list(e.get("in_datasets", ()), where,
                                      "in_datasets"),
                out_datasets=_str_list(e.get("out_datasets", ()), where,
@@ -225,13 +242,16 @@ def to_spec(process_list: ProcessList | Iterable[PluginEntry]
             raise WireError(
                 f"entry {i}: {e.cls.__module__}.{e.cls.__qualname__} is "
                 f"not wire-registered — register_plugin() it to serve it")
-        bad = [k for k, v in e.params.items() if not _is_jsonable(v)]
+        bad = [k for k, v in e.params.items()
+               if k not in LOCAL_PARAMS and not _is_jsonable(v)]
         if bad:
             raise WireError(f"entry {i} ({name}): param(s) {bad} are not "
                             f"JSON-serialisable")
         entry: dict[str, Any] = {"plugin": name}
-        if e.params:
-            entry["params"] = dict(e.params)
+        params = {k: v for k, v in e.params.items()
+                  if k not in LOCAL_PARAMS}
+        if params:
+            entry["params"] = params
         if e.in_datasets:
             entry["in_datasets"] = list(e.in_datasets)
         if e.out_datasets:

@@ -11,47 +11,92 @@ CPU tensors; the transport moves them to its device.
 """
 from __future__ import annotations
 
+import threading
+import weakref
+
 import numpy as np
 import torch
 
 from ..core.dataset import DataSet
 from ..core.patterns import PROJECTION, SINOGRAM, TIMESERIES, VOLUME_XZ
 from ..core.plugin import BaseFilter, BaseLoader, BaseRecon, BaseSaver
+from ..device import resolve_device
 from ..kernels.backproject.ops import backproject
 from ..kernels.correction.ops import correct
 from ..kernels.sino_filter.ops import filter_sino
-from ..kernels.sino_filter.ref import make_filter
+from ..kernels.sino_filter.ref import make_filter, member_rows
 from .geometry import ParallelGeometry
 from .phantom import phantom_stack, simulate_raw_scan
+
+
+class _Scan(dict):
+    """A simulated scan (a dict, weakly referenced from :data:`_SCANS`)."""
+
+
+#: simulated scans that some loader's dataset still holds, by what
+#: defines them: loaders of one scan (a sweep's variants) share one
+#: simulation rather than each making its own
+_SCANS: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
+_SCANS_LOCK = threading.Lock()
+_SIMULATING: dict[tuple, threading.Lock] = {}
+
+
+def simulated_scan(n_det: int, n_angles: int, n_rows: int,
+                   noise: float = 0.0, seed: int = 0,
+                   device: str | torch.device = "cuda") -> dict:
+    """The scan :class:`SyntheticTomoLoader` simulates for these
+    parameters: the one already alive with the same parameters on the
+    same device, else a new :func:`simulate_raw_scan` (one at a time per
+    parameter set).  Its arrays are shared; nothing writes to them.  The
+    entry lasts while a holder of the returned dict does."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (int(n_det), int(n_angles), int(n_rows), float(noise),
+           int(seed), str(dev))
+    with _SCANS_LOCK:
+        lock = _SIMULATING.setdefault(key, threading.Lock())
+    with lock:
+        scan = _SCANS.get(key)
+        if scan is None:
+            geom = ParallelGeometry(n_angles, n_det, n_rows)
+            scan = _Scan(simulate_raw_scan(phantom_stack(n_det, n_rows),
+                                           geom, noise=noise, seed=seed,
+                                           device=dev))
+            _SCANS[key] = scan
+    with _SCANS_LOCK:
+        _SIMULATING.pop(key, None)
+    return scan
 
 
 class SyntheticTomoLoader(BaseLoader):
     """Creates a raw full-field scan (θ, y, x) from a phantom — the
     nx_tomo_loader analogue, with dark/flat fields in metadata.  The
-    scan is simulated on ``device``; a ``scan`` dict of numpy arrays
+    scan is simulated on ``device`` (:func:`simulated_scan`: loaders of
+    one scan share one simulation); a ``scan`` dict of numpy arrays
     (``data``, ``dark``, ``flat``...) is taken as it is."""
 
     name = "synthetic_tomo_loader"
     parameters = {"n_det": 64, "n_angles": 64, "n_rows": 4, "noise": 0.0,
                   "seed": 0, "scan": None, "device": "cuda"}
-    data_params = ("seed", "scan")      # dataset identity, not pipeline
+    # dataset identity and where it is simulated, not pipeline
+    data_params = ("seed", "scan", "device")
 
     def load(self) -> list[DataSet]:
         p = self.params
         scan = p["scan"]
         if scan is None:
-            geom = ParallelGeometry(p["n_angles"], p["n_det"], p["n_rows"])
-            vol = phantom_stack(p["n_det"], p["n_rows"])
-            scan = simulate_raw_scan(vol, geom, noise=p["noise"],
-                                     seed=p["seed"], device=p["device"])
-        else:
-            geom = ParallelGeometry(scan["data"].shape[0],
-                                    scan["data"].shape[2],
-                                    scan["data"].shape[1])
+            scan = simulated_scan(p["n_det"], p["n_angles"], p["n_rows"],
+                                  p["noise"], p["seed"], p["device"])
+        geom = ParallelGeometry(scan["data"].shape[0],
+                                scan["data"].shape[2],
+                                scan["data"].shape[1])
         data = scan["data"]
+        # lazy (paper §III.F.2); the closure holds the scan, so loaders
+        # set up meanwhile share it
         ds = DataSet(self.out_dataset_names[0], data.shape, data.dtype,
                      ("rotation_angle", "detector_y", "detector_x"),
-                     backing=lambda: data)      # lazy (paper §III.F.2)
+                     backing=lambda: scan["data"])
         ds.add_pattern(PROJECTION, core=("detector_y", "detector_x"),
                        slice_=("rotation_angle",))
         ds.add_pattern(SINOGRAM, core=("rotation_angle", "detector_x"),
@@ -127,9 +172,21 @@ class PaganinFilter(BaseFilter):
 
     def process_frames(self, frames):
         (block,) = frames          # (m, y, x) — already −log corrected
+        return self._retrieve(block, self._denom[None])
+
+    def process_frames_batched(self, frames, consts, counts):
+        """A gang's frames, each member with its own ``tau`` (its own
+        ``_denom``): one pass, each frame scaled by its member's."""
+        (block,) = frames
+        return self._retrieve(block, torch.stack(
+            [c["_denom"] for c in consts])[member_rows(
+                counts, block.shape[0], len(consts), block.device)])
+
+    @staticmethod
+    def _retrieve(block, denom):
         intensity = torch.exp(-block)          # back to transmission
         spec = torch.fft.fft2(intensity.to(torch.complex64), dim=(1, 2))
-        filt = torch.fft.ifft2(spec * self._denom[None], dim=(1, 2)).real
+        filt = torch.fft.ifft2(spec * denom, dim=(1, 2)).real
         return -torch.log(torch.clamp(filt, min=1e-6))
 
 
@@ -155,6 +212,18 @@ class RingRemoval(BaseFilter):
 
     def process_frames(self, frames):
         (block,) = frames          # (m, angles, x)
+        return block - self._strength * self._stripe(block)
+
+    def process_frames_batched(self, frames, consts, counts):
+        """A gang's frames, each member with its own ``strength``: one
+        pass, each frame's stripe scaled by its member's."""
+        (block,) = frames
+        strength = torch.tensor([c["_strength"] for c in consts],
+                                dtype=block.dtype, device=block.device)
+        rows = member_rows(counts, block.shape[0], len(consts), block.device)
+        return block - strength[rows][:, None, None] * self._stripe(block)
+
+    def _stripe(self, block):
         col_mean = torch.mean(block, dim=1, keepdim=True)   # (m, 1, x)
         k = int(self.params["kernel"])
         pad = k // 2
@@ -166,8 +235,7 @@ class RingRemoval(BaseFilter):
         kern = torch.full((k,), 1.0 / k, dtype=block.dtype,
                           device=block.device)
         smooth = (padded.unfold(-1, k, 1) * kern).sum(dim=-1)
-        stripe = col_mean - smooth
-        return block - self._strength * stripe
+        return col_mean - smooth
 
 
 class SinogramFilter(BaseFilter):
@@ -197,6 +265,15 @@ class SinogramFilter(BaseFilter):
     def process_frames(self, frames):
         (block,) = frames          # (m, angles, x)
         return filter_sino(block, self._filt,
+                           use_pallas=self.params["use_pallas"])
+
+    def process_frames_batched(self, frames, consts, counts):
+        """A gang's sinograms (member j's ``counts[j]`` after member j -
+        1's), each member with its own filter (its ``cutoff``): one
+        spectrum-scale launch with a filter row per member."""
+        (block,) = frames
+        return filter_sino(block, torch.stack([c["_filt"] for c in consts]),
+                           counts=counts,
                            use_pallas=self.params["use_pallas"])
 
 
@@ -244,7 +321,9 @@ class FBPRecon(BaseRecon):
 class UpstreamLoader(BaseLoader):
     """Workflow stage input: loads another job's result volume as this
     chain's starting dataset.  By ``load()`` time exactly one of ``data``
-    (an array) or ``path`` (an ``.npy`` file) is given."""
+    (an array, or the upstream's tensor where its job left it, on the
+    card for a ``CudaTransport``) or ``path`` (an ``.npy`` file) is
+    given."""
 
     name = "upstream_loader"
     parameters = {"from_job": None, "dataset": None, "data": None,
@@ -264,14 +343,16 @@ class UpstreamLoader(BaseLoader):
             raise RuntimeError(
                 "upstream_loader: no input — neither a resolved 'data' "
                 "array nor a 'path' was provided")
-        arr = np.asarray(data)
+        arr = data if isinstance(data, torch.Tensor) else np.asarray(data)
         if arr.ndim == 2:
             arr = arr[None]
         if arr.ndim != 3:
             raise RuntimeError(
                 f"upstream_loader: expected a (y, z, x) volume, got "
-                f"shape {arr.shape}")
-        ds = DataSet(self.out_dataset_names[0], arr.shape, arr.dtype,
+                f"shape {tuple(arr.shape)}")
+        dtype = (torch.empty(0, dtype=arr.dtype).numpy().dtype
+                 if isinstance(arr, torch.Tensor) else arr.dtype)
+        ds = DataSet(self.out_dataset_names[0], tuple(arr.shape), dtype,
                      ("voxel_y", "voxel_z", "voxel_x"),
                      backing=lambda: arr)
         ds.add_pattern(VOLUME_XZ, core=("voxel_z", "voxel_x"),

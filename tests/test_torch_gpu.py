@@ -26,7 +26,9 @@ from repro_torch.kernels.correction.ref import (correct_batched_ref,
                                                 correct_ref)
 from repro_torch.kernels.sino_filter.kernel import scale_spectrum_cuda
 from repro_torch.kernels.sino_filter.ops import filter_sino
-from repro_torch.kernels.sino_filter.ref import (filter_sino_ref, make_filter,
+from repro_torch.kernels.sino_filter.ref import (filter_sino_batched_ref,
+                                                 filter_sino_ref, make_filter,
+                                                 scale_spectrum_batched_ref,
                                                  scale_spectrum_ref)
 from repro_torch.models import build_model
 from repro_torch.tomo import (ParallelGeometry, phantom_stack,
@@ -180,6 +182,162 @@ def test_spectrum_scale_kernel_on_card(cuda, rng, rows, nf, offset):
         torch.view_as_real(got).cpu().numpy(),
         torch.view_as_real(scale_spectrum_ref(spec, filt)).cpu().numpy(),
         rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("counts,nf,offset", [
+    ([3, 0, 5], 7, 0),          # members start and end at odd bins
+    ([3, 3, 3], 7, 0),          # the same, equal members: no offsets
+    ([4 * 1801] * 4, 4097, 0),  # a sweep of 4 at the main row length
+    ([1, 2], 513, 1),           # not 16-byte aligned: the scalar pass
+    ([2, 2], 513, 1),           # the same, equal members
+], ids=["odd_edges", "equal_odd_edges", "sweep_of_4", "unaligned",
+        "equal_unaligned"])
+def test_spectrum_scale_per_member_kernel_on_card(cuda, rng, counts, nf,
+                                                  offset):
+    """One launch for a gang, each member's rows scaled by its own filter
+    row: equal, bit for bit, to the plain version and to one launch per
+    member alone."""
+    rows = sum(counts)
+    flat = _t(rng.normal(size=(rows * nf + offset, 2)).astype(np.float32))
+    spec = torch.view_as_complex(flat.to(cuda))[offset:].view(rows, nf)
+    filts = _t(rng.uniform(0, 1, size=(len(counts), nf)).astype(
+        np.float32)).to(cuda)
+    n = scale_spectrum_cuda.launches
+    got = scale_spectrum_cuda(spec, filts, counts)
+    assert scale_spectrum_cuda.launches == n + 1
+    assert torch.equal(got, scale_spectrum_batched_ref(spec, filts, counts))
+    lo = 0
+    for j, c in enumerate(counts):
+        if c:
+            assert torch.equal(got[lo:lo + c], scale_spectrum_cuda(
+                spec[lo:lo + c].contiguous(), filts[j]))
+        lo += c
+    sino = _t(rng.normal(size=(8, 5, 100)).astype(np.float32))
+    sfilts = _t(np.stack([make_filter(100, k) for k in ("shepp", "hann")]))
+    np.testing.assert_allclose(
+        filter_sino(sino.to(cuda), sfilts, counts=[3, 5]).cpu().numpy(),
+        filter_sino_batched_ref(sino, sfilts, [3, 5]).numpy(),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_sweep_over_http_one_spectrum_scale_launch_per_gang_step(cuda):
+    """A 4-value cutoff sweep through the service on the card: one gang,
+    no fallback, and each gang step's span records exactly one launch of
+    its kernel (three kernels, one launch each over the sweep)."""
+    from repro_torch.service import (PipelineClient, PipelineService,
+                                     from_spec, to_spec)
+    svc = PipelineService(device=cuda, n_workers=1, batch_identical=True,
+                          batch_max=4, cost_analysis=True)
+    host, port = svc.serve(port=0)
+    client = PipelineClient(f"http://{host}:{port}", timeout=120.0)
+    chain = standard_chain(n_det=64, n_angles=48, n_rows=2, seed=1)
+    cutoffs = [1.0, 0.8, 0.6, 0.4]
+    try:
+        reply = client.sweep(chain, {"plugin": "sinogram_filter",
+                                     "param": "cutoff", "values": cutoffs})
+        snap = client.wait_sweep(reply["sweep_id"], timeout=300)
+        assert snap["state"] == "done", snap
+        stats = client.stats()
+        assert stats["gangs_run"] == 1 and stats["gang_fallbacks"] == 0
+        spans = {s["name"]: s["attrs"] for s in client.trace(
+            reply["job_ids"][0])["spans"] if s["name"].endswith(".process")}
+        launched = {k: v for a in spans.values() for k, v in a.items()
+                    if k.startswith("launches.")}
+        assert launched == {"launches.correction": 1,
+                            "launches.spectrum_scale": 1,
+                            "launches.backprojection": 1}
+        assert spans["plugin.sinogram_filter.process"][
+            "launches.spectrum_scale"] == 1
+        assert all(spans[f"plugin.{p}.process"]["peak_memory"] > 0
+                   for p in ("dark_flat_correction", "sinogram_filter",
+                             "fbp_recon"))
+        stacked = client.sweep_result(reply["sweep_id"])
+    finally:
+        svc.stop()
+    for k, cutoff in enumerate(cutoffs):
+        spec = to_spec(chain)
+        spec["plugins"][3]["params"]["cutoff"] = cutoff
+        r = PluginRunner(from_spec(spec, device=cuda), CudaTransport(cuda))
+        np.testing.assert_allclose(stacked[k],
+                                   r.transport.read(r.run()["recon"]),
+                                   rtol=1e-3, atol=1e-4)
+
+
+def _served_on_card(cuda, **kw):
+    from repro_torch.service import PipelineClient, PipelineService
+    svc = PipelineService(device=cuda, **kw)
+    host, port = svc.serve(port=0)
+    return svc, PipelineClient(f"http://{host}:{port}", timeout=120.0)
+
+
+def _process_attrs(client, jid) -> dict:
+    return {s["name"]: s["attrs"] for s in client.trace(jid)["spans"]
+            if s["name"].endswith(".process")}
+
+
+def test_cost_analysis_measures_each_step_once_per_service(cuda):
+    """Two jobs of one chain under cost analysis: the first job's steps
+    run twice (the cost run and the step), the second's once, so each
+    of the three kernels launches 3 times, not 4."""
+    wrappers = (correct_cuda, scale_spectrum_cuda, backproject_cuda)
+    svc, client = _served_on_card(cuda, n_workers=1, cost_analysis=True)
+    try:
+        for w in wrappers:
+            w.launches = 0
+        for seed in (1, 2):
+            jid = client.submit(standard_chain(n_det=64, n_angles=48,
+                                               n_rows=2, seed=seed))
+            assert client.wait(jid, timeout=300)["state"] == "done"
+        assert [w.launches for w in wrappers] == [3, 3, 3]
+    finally:
+        svc.stop()
+
+
+def test_peak_memory_on_card_same_with_two_workers(cuda):
+    """The peak memory on the process spans is each step's own: two
+    workers costing two chains at once read what one worker reads."""
+    def peaks(n_workers):
+        svc, client = _served_on_card(cuda, n_workers=n_workers,
+                                      cost_analysis=True)
+        try:
+            ids = [client.submit(standard_chain(n_det=nd, n_angles=nd,
+                                                n_rows=4))
+                   for nd in (256, 320)]
+            for jid in ids:
+                assert client.wait(jid, timeout=300)["state"] == "done"
+            return [{n: a["peak_memory"] for n, a in
+                     _process_attrs(client, jid).items()} for jid in ids]
+        finally:
+            svc.stop()
+    one = peaks(1)
+    assert peaks(2) == one
+    assert one[0]["plugin.dark_flat_correction.process"] >= \
+        256 * 4 * 256 * 4
+
+
+def test_client_ingest_synthetic_on_card(cuda, capsys):
+    """``client ingest --synthetic`` simulates on the card by default and
+    feeds a served streaming job chunk by chunk from the host; the job
+    ends bit for bit its batch run on the card."""
+    from repro_torch.launch import pipeline_serve
+    from repro_torch.service import from_spec, to_spec
+    geo = ["--n-det", "64", "--n-angles", "48", "--n-rows", "2",
+           "--seed", "3"]
+    svc, client = _served_on_card(cuda, n_workers=1)
+    try:
+        url = ["client", "--url", client.base_url]
+        pipeline_serve.main(url + ["submit", "--demo-chain", "--streaming",
+                                   "--job-id", "scan3"] + geo)
+        pipeline_serve.main(url + ["ingest", "scan3", "--synthetic",
+                                   "--chunk", "16"] + geo)
+        assert client.wait("scan3", timeout=300)["state"] == "done"
+        got = client.result("scan3")
+    finally:
+        svc.stop()
+    assert capsys.readouterr().out.count("fed frames") == 3
+    spec = to_spec(standard_chain(n_det=64, n_angles=48, n_rows=2, seed=3))
+    r = PluginRunner(from_spec(spec, device=cuda), CudaTransport(cuda))
+    np.testing.assert_array_equal(got, r.transport.read(r.run()["recon"]))
 
 
 # (S, A, D, N, centre): slice counts for which the entry point picks

@@ -19,7 +19,7 @@ from repro_torch.kernels.backproject.ops import backproject
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.launch import pipeline_serve, serve
 from repro_torch.models import build_model
-from repro_torch.service import JobQueue, PipelineScheduler
+from repro_torch.service import JobQueue, PipelineScheduler, PipelineService
 from repro_torch.tomo import ParallelGeometry, forward_project, \
     standard_chain
 
@@ -63,7 +63,11 @@ def test_port_imports_with_jax_and_reference_blocked():
                     "repro_torch.configs", "repro_torch.models",
                     "repro_torch.models.convert", "repro_torch.training",
                     "repro_torch.launch.serve", "repro_torch.obs",
-                    "repro_torch.service",
+                    "repro_torch.service", "repro_torch.service.server",
+                    "repro_torch.service.client",
+                    "repro_torch.service.sweep",
+                    "repro_torch.service.workflow", "repro_torch.obs.slo",
+                    "repro_torch.obs.export", "repro_torch.kernels.tally",
                     "repro_torch.launch.pipeline_serve", *ops]],
         "print('imported')"])
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -95,8 +99,12 @@ def test_runner_without_transport_needs_the_card(no_cuda):
     lambda: serve.main(["--smoke", "--requests", "1"]),
     lambda: PipelineScheduler(JobQueue()),
     lambda: pipeline_serve.main(["--jobs", "1"]),
+    lambda: PipelineService(),
+    lambda: pipeline_serve.main(["client", "--url", "http://127.0.0.1:9",
+                                 "ingest", "scan", "--synthetic"]),
 ], ids=["resolve_device", "inmemory", "chunked", "forward_project",
-        "build_model", "serve", "scheduler", "pipeline_serve"])
+        "build_model", "serve", "scheduler", "pipeline_serve",
+        "pipeline_service", "client_ingest_synthetic"])
 def test_entry_points_default_to_the_card(no_cuda, make):
     with pytest.raises(RuntimeError, match="cpu"):
         make()
@@ -142,10 +150,29 @@ def test_pipeline_serve_batch_max_bounds_the_gang():
     assert summary["max_abs_err_vs_serial"] < 1e-4
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--serve", "8973"], "D1"), (["--workers-remote", "2"], "D1"),
-    (["--cost-analysis"], "D4"), (["client", "submit"], "D1")],
-    ids=["serve", "workers_remote", "cost_analysis", "client"])
-def test_pipeline_serve_modes_not_ported_name_their_item(argv, item):
-    with pytest.raises(SystemExit, match=item):
+@pytest.mark.parametrize("argv", [
+    ["--serve", "0", "--workers-remote", "0", "--device", "cpu"],
+    ["--workers-remote", "2", "--device", "cpu"],
+    ["client", "cluster"]],
+    ids=["serve", "workers_remote", "client"])
+def test_pipeline_serve_modes_not_ported_name_their_item(argv):
+    """Broker mode is what stays unported: served or in the demo, and
+    the client's cluster view, which only a broker answers."""
+    with pytest.raises(SystemExit, match='"Next" D1 part two'):
         pipeline_serve.main(argv)
+
+
+def test_pipeline_service_broker_mode_names_its_item():
+    with pytest.raises(NotImplementedError, match='"Next" D1 part two'):
+        PipelineService(device="cpu", workers_remote=True)
+
+
+def test_pipeline_serve_cost_analysis_on_the_cpu(capsys):
+    """--cost-analysis runs (the demo's spans carry the step costs)."""
+    summary = pipeline_serve.main(["--jobs", "1", "--workers", "1",
+                                   "--device", "cpu", "--n-det", "16",
+                                   "--n-angles", "12", "--cost-analysis"])
+    assert summary["jobs"] == 1
+    with pytest.raises(SystemExit, match="--transport cuda"):
+        pipeline_serve.main(["--jobs", "1", "--device", "cpu",
+                             "--transport", "inmemory", "--cost-analysis"])

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels.backproject.kernel import backproject_pallas
@@ -35,9 +36,13 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.flash_attention.ref import (mha_chunked_ref, mha_ref,
                                                      mha_tiled_ref)
+from repro_torch.kernels import tally
+from repro_torch.kernels.backproject.kernel import rays_on_detector
 from repro_torch.kernels.sino_filter.kernel import scale_spectrum_cuda
 from repro_torch.kernels.sino_filter.ops import filter_sino
-from repro_torch.kernels.sino_filter.ref import (filter_sino_ref, make_filter,
+from repro_torch.kernels.sino_filter.ref import (filter_sino_batched_ref,
+                                                 filter_sino_ref, make_filter,
+                                                 scale_spectrum_batched_ref,
                                                  scale_spectrum_ref)
 
 
@@ -145,6 +150,99 @@ def test_sino_filter_leading_dims(rng):
     np.testing.assert_allclose(
         got.numpy()[1], filter_sino_ref(_t(sino[1]), filt).numpy(),
         rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("counts,rows_per_frame", [
+    ([2, 4, 1], 5), ([4, 4, 4, 4], 9), ([3, 0, 2], 1)],
+    ids=["ragged", "sweep_of_4", "empty_member"])
+def test_batched_sino_filter_is_solo_calls_bit_for_bit(rng, counts,
+                                                       rows_per_frame):
+    """A gang's sinograms filtered in one pass, each member by its own
+    filter row, equal J solo calls bit for bit (the same multiply per
+    bin), and the JAX package's ``vmap`` of its op over the members (its
+    sweep path) within the op's tolerance."""
+    D = 40
+    sino = rng.normal(size=(sum(counts), rows_per_frame, D)).astype(
+        np.float32)
+    base = make_filter(D, "shepp")
+    nf = base.shape[0]
+    filts = np.stack([base * (np.linspace(0, 1, nf) <= c)
+                      for c in np.linspace(1.0, 0.4, len(counts))]
+                     ).astype(np.float32)
+    got = filter_sino(_t(sino), _t(filts), counts=counts)
+    assert torch.equal(got, filter_sino_batched_ref(_t(sino), _t(filts),
+                                                    counts))
+    lo = 0
+    for j, c in enumerate(counts):
+        if c:                                # an empty member has no rows
+            assert torch.equal(got[lo:lo + c], filter_sino_ref(
+                _t(sino[lo:lo + c]), _t(filts[j])))
+        lo += c
+    equal = [c for c in counts if c == counts[0]]
+    if len(equal) == len(counts):            # vmap needs equal members
+        want = jax.vmap(lambda s, f: jax_filter_sino(
+            s, f, use_pallas=True, interpret=True))(
+            jnp.asarray(sino.reshape(len(counts), counts[0],
+                                     rows_per_frame, D)),
+            jnp.asarray(filts))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want).reshape(
+            got.shape), rtol=1e-5, atol=1e-5)
+    spec = torch.fft.rfft(_t(sino).reshape(-1, D), n=2 * (nf - 1), dim=-1)
+    rows = [c * rows_per_frame for c in counts]
+    assert torch.equal(scale_spectrum_batched_ref(spec, _t(filts), rows),
+                       torch.cat([scale_spectrum_ref(part, _t(f)) for part, f
+                                  in zip(torch.split(spec, rows), filts)]))
+    with pytest.raises(ValueError, match="counts"):
+        filter_sino(_t(sino), _t(filts), counts=[1] * len(counts))
+
+
+def test_ops_note_their_kernels_cost_counts(rng):
+    """On the CPU each op notes its kernel's ``cost()`` for the work it
+    did (plain version, so no launch): what ``plugin_cost`` sums."""
+    from repro_torch.kernels.backproject.kernel import cost as bp_cost
+    from repro_torch.kernels.correction.kernel import cost as corr_cost
+    from repro_torch.kernels.sino_filter.kernel import cost as sf_cost
+    raw = _t(rng.integers(50, 40000, size=(6, 4, 32)).astype(np.uint16))
+    dark, flat = torch.full((4, 32), 100.0), torch.full((4, 32), 3e4)
+    sino = _t(rng.normal(size=(3, 12, 32)).astype(np.float32))
+    angles = torch.linspace(0, np.pi, 12)
+    with tally.tally(costs=True) as t, tally.tally() as launches:
+        correct(raw, dark, flat)
+        filter_sino(sino, _t(make_filter(32)))
+        backproject(sino, angles, 32)
+    rays = rays_on_detector(torch.cos(angles), torch.sin(angles), 32, 32)
+    works = [corr_cost(6, 128, 2), sf_cost(36, 33), bp_cost(3, 12, 32, 32,
+                                                            rays)]
+    assert t.flops == sum(w["flops"] for w in works)
+    assert t.bytes == sum(w["bytes"] for w in works)
+    assert t.launches == launches.launches == {}
+    # every position of a ray inside the detector, counted as numpy
+    # rounds it in float32
+    xs = np.arange(32, dtype=np.float32) - np.float32(15.5)
+    cos, sin = np.cos(angles.numpy()), np.sin(angles.numpy())
+    tpos = (xs[None, None, :] * cos[:, None, None]
+            + xs[None, :, None] * sin[:, None, None]) + np.float32(15.5)
+    assert rays == int(((tpos > -1) & (tpos < 32)).sum())
+    assert sf_cost(10, 4097, 4) == {"flops": 10 * 4097 * 2.0,
+                                    "bytes": 10 * 4097 * 16.0
+                                    + 4 * 4097 * 4.0}
+
+
+def test_note_counts_a_launch_once_for_the_process_and_each_tally():
+    """A launch is counted in one place: ``tally.note`` with the
+    wrapper raises its process-wide count and every open tally's; a call
+    computed by the plain version raises neither."""
+    def wrapper():
+        pass
+    wrapper.launches = 0
+    work = lambda: {"flops": 3.0, "bytes": 8.0}  # noqa: E731
+    tally.note("k", work, wrapper)               # no tally open
+    with tally.tally(costs=True) as outer, tally.tally() as inner:
+        tally.note("k", work, wrapper)
+        tally.note("k", work)
+    assert wrapper.launches == 2
+    assert outer.launches == inner.launches == {"k": 1}
+    assert (outer.flops, outer.bytes) == (6.0, 16.0)
 
 
 def test_scale_spectrum_matches_jax(rng):

@@ -1,8 +1,11 @@
 """The port's telemetry (obs/) against tests/test_obs.py: the
 MetricsRegistry and EventLog cases that need no server, the span
-context manager the service uses, and the catalogue covering every
-metric the port creates.  The port's modules are copies (stdlib only),
-so the JAX package's expectations hold unchanged."""
+context manager the service uses, the shipping half of the trace
+(wire form, merge, spool), the Gantt rendering, the SLO engine and the
+OTLP export, and the catalogue covering every metric the port creates.
+The port's modules are copies (stdlib only), so the JAX package's
+expectations hold unchanged; where a case renders or exports, the JAX
+package's module gives the same document from the same input."""
 import math
 import os
 import re
@@ -14,8 +17,11 @@ import pytest
 import repro.obs as JO
 
 from repro_torch.obs import (CATALOGUE, Counter, EventLog, Gauge, Histogram,
-                             MetricsRegistry, Trace, catalogue_names,
-                             prometheus_name, register_catalogue)
+                             MetricsRegistry, OtlpSpool, SloEngine, SloRule,
+                             Span, Trace, TraceSpool, catalogue_names,
+                             default_rules, iter_spans, metrics_to_otlp,
+                             prometheus_name, register_catalogue,
+                             render_gantt, rules_from_spec, trace_to_otlp)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -261,3 +267,276 @@ def test_eventlog_limit_and_validation():
         log.since(-1)
     with pytest.raises(ValueError):
         EventLog(max_events=0)
+
+
+# ================================================ trace shipping + gantt
+def test_span_wire_roundtrip_matches_jax():
+    s = Span("plugin.fbp.process", 10.0, 11.5, worker_id="w0",
+             parent_id="abc", attrs={"phase": "process", "gang": 2})
+    back = Span.from_wire(s.to_wire())
+    assert back.name == s.name and back.span_id == s.span_id
+    assert back.start == 10.0 and back.end == 11.5
+    assert back.worker_id == "w0" and back.parent_id == "abc"
+    assert back.attrs == s.attrs
+    # the wire form is the JAX package's: each side reads the other's
+    assert JO.Span.from_wire(s.to_wire()).to_wire() == s.to_wire()
+
+
+def test_merge_dedups_and_ship_unship_protocol():
+    tr = Trace("job-1")
+    wire = [Span("lease", 1.0, 2.0, span_id="aaa").to_wire(),
+            Span("plugin.x.process", 1.2, 1.8, span_id="bbb").to_wire()]
+    assert [s.span_id for s in tr.merge(wire)] == ["aaa", "bbb"]
+    assert tr.merge(wire) == [] and len(tr) == 2
+    assert tr.merge([{"nonsense": True}, None]) == []
+    tr = Trace()
+    tr.record("a", 1.0, 2.0)
+    open_span = tr.begin("b")                # unfinished: never shipped
+    batch = tr.take_unshipped()
+    assert [s.name for s in batch] == ["a"]
+    assert tr.take_unshipped() == []
+    tr.unship(batch)
+    assert [s.name for s in tr.take_unshipped()] == ["a"]
+    tr.finish(open_span)
+    assert [s.name for s in tr.take_unshipped()] == ["b"]
+
+
+def test_render_gantt_layout():
+    spans = [Span("queue.wait", 0.0, 1.0),
+             Span("plugin.fbp.process", 1.0, 3.0, worker_id="w1")]
+    out = render_gantt(spans, width=40)
+    lines = out.splitlines()
+    assert "timeline" in lines[0] and "3.000s total" in lines[0]
+    assert lines[1].startswith("queue.wait")
+    assert "w1" in lines[2] and "#" in lines[2]
+    assert render_gantt([]) == "(no spans)"
+    assert out == JO.render_gantt(
+        [JO.Span.from_wire(s.to_wire()) for s in spans], width=40)
+
+
+def test_trace_spool_ring(tmp_path):
+    spool = TraceSpool(str(tmp_path / "spool"), max_traces=2)
+    for i in range(3):
+        tr = Trace(f"t{i}")
+        tr.record("a", 0.0, 1.0)
+        spool.put(f"job/{i}", tr)
+        os.utime(spool._path(f"job/{i}"), (i + 1, i + 1))
+    spool.put("job/3", None)                 # "existed" beats a 404
+    assert len(spool) == 2
+    assert spool.get("job/0") is None and spool.get("job/1") is None
+    assert spool.get("job/3") == {"job_id": "job/3", "trace_id": "",
+                                  "spans": []}
+    with pytest.raises(ValueError):
+        TraceSpool(str(tmp_path / "x"), max_traces=0)
+
+
+# =========================================================== SLO engine
+def _jax_slo_events(drive):
+    reg, log = JO.MetricsRegistry(), JO.EventLog()
+    return drive(reg, JO.SloEngine(reg, events=log)), log
+
+
+def test_slo_gauge_rule_full_lifecycle_with_holddowns():
+    """ok -> pending -> (for_s held) firing -> (resolve_s held) ok, one
+    event per transition, as the JAX package's engine walks it."""
+    def drive(reg, eng):
+        g = reg.gauge("queue.oldest_age_s")
+        g.set(200.0)                         # rule: > 120 for 5s
+        out = [eng.evaluate(now=1000.0), eng.evaluate(now=1004.0),
+               eng.evaluate(now=1005.0)]
+        g.set(10.0)
+        out += [eng.evaluate(now=1006.0), eng.evaluate(now=1010.9),
+                eng.evaluate(now=1011.0)]
+        return out
+
+    reg, log = MetricsRegistry(), EventLog()
+    eng = SloEngine(reg, events=log)
+    got = drive(reg, eng)
+    assert got == [["alert.pending"], [], ["alert.firing"], [], [],
+                   ["alert.resolved"]]
+    assert got == _jax_slo_events(drive)[0]
+    assert eng.n_firing() == 0
+    names = [e["event"] for e in log.since(0)["events"]]
+    assert names == ["alert.pending", "alert.firing", "alert.resolved"]
+    for e in log.since(0)["events"]:
+        assert e["trace_id"] == eng.trace_id
+        assert e["attrs"]["rule"] == "queue-oldest-age"
+    assert reg.counter("alerts.fired").value == 1
+    assert reg.counter("alerts.resolved").value == 1
+    (rule,) = [r for r in eng.snapshot()["rules"]
+               if r["name"] == "queue-oldest-age"]
+    assert rule["fired"] == 1 and rule["resolved"] == 1
+
+
+def test_slo_pending_that_never_fires_folds_back_silently():
+    reg, log = MetricsRegistry(), EventLog()
+    eng = SloEngine(reg, events=log)
+    g = reg.gauge("queue.oldest_age_s")
+    g.set(500.0)
+    assert eng.evaluate(now=0.0) == ["alert.pending"]
+    g.set(0.0)
+    assert eng.evaluate(now=1.0) == []
+    assert eng.n_firing() == 0
+    assert [e["event"] for e in log.since(0)["events"]] == \
+        ["alert.pending"]
+    assert reg.counter("alerts.fired").value == 0
+
+
+def test_slo_rate_rule_fires_on_counter_increase_and_resolves():
+    reg = MetricsRegistry()
+    eng = SloEngine(reg, events=EventLog())
+    c = reg.counter("lease.expired")
+    assert eng.evaluate(now=0.0) == []
+    c.inc()
+    assert eng.evaluate(now=1.0) == ["alert.pending", "alert.firing"]
+    (detail,) = eng.critical_firing()
+    assert detail["name"] == "lease-expiry-rate" and detail["value"] == 1.0
+    assert eng.evaluate(now=20.0) == []
+    assert eng.n_firing() == 1
+    assert eng.evaluate(now=32.0) == ["alert.resolved"]
+    assert eng.critical_firing() == [] and eng.n_firing() == 0
+
+
+def test_slo_quantile_rule_ignores_empty_histogram():
+    reg = MetricsRegistry()
+    eng = SloEngine(reg)
+    reg.histogram("job.latency.e2e")
+    assert eng.evaluate(now=0.0) == []
+    for _ in range(3):
+        reg.histogram("job.latency.e2e").observe(400.0)  # p99 > 300
+    assert eng.evaluate(now=1.0) == ["alert.pending"]
+    assert eng.evaluate(now=6.0) == ["alert.firing"]     # for_s=5
+
+
+def test_slo_missing_metric_never_breaches():
+    eng = SloEngine(MetricsRegistry())
+    assert eng.evaluate(now=0.0) == []
+    snap = eng.snapshot()
+    assert all(r["state"] == "ok" and r["value"] is None
+               for r in snap["rules"])
+    jsnap = JO.SloEngine(JO.MetricsRegistry()).snapshot()
+    assert [r["name"] for r in snap["rules"]] == \
+        [r["name"] for r in jsnap["rules"]]
+
+
+def test_rules_from_spec_patch_add_disable():
+    assert [r.name for r in default_rules()] == \
+        [r.name for r in JO.default_rules()]
+    spec = {"lease-expiry-rate": {"window_s": 5.0},
+            "my-depth": {"metric": "queue.depth", "threshold": 50.0,
+                         "critical": True},
+            "ingest-lag": None}
+    rules = rules_from_spec(spec)
+    by_name = {r.name: r for r in rules}
+    assert by_name["lease-expiry-rate"].window_s == 5.0
+    assert by_name["lease-expiry-rate"].critical is True
+    assert by_name["my-depth"].metric == "queue.depth"
+    assert "ingest-lag" not in by_name and len(rules) == 5
+    assert [r.name for r in rules] == \
+        [r.name for r in JO.rules_from_spec(spec)]
+
+
+def test_rules_from_spec_rejects_bad_specs():
+    with pytest.raises(ValueError):
+        rules_from_spec({"queue-oldest-age": {"nope": 1}})
+    with pytest.raises(ValueError):
+        rules_from_spec({"queue-oldest-age": 42})
+    with pytest.raises(ValueError):
+        rules_from_spec({"new-rule": {"metric": "queue.depth"}})
+    with pytest.raises(ValueError):
+        SloRule("x", "m", 1.0, kind="nope")
+    with pytest.raises(ValueError):
+        SloRule("x", "m", 1.0, op=">=")
+
+
+# ========================================================== OTLP export
+def test_trace_to_otlp_maps_spans_one_to_one():
+    s1 = Span("queue.wait", 1.0, 2.0, span_id="aaa1")
+    s2 = Span("plugin.fbp.process", 2.0, 3.5, span_id="bbb2",
+              parent_id="aaa1", worker_id="w0",
+              attrs={"flops": 1e9, "gang": 2, "ok": True, "tag": "x"})
+    doc = {"trace_id": "deadbeefdeadbeef",
+           "spans": [s1.to_wire(), s2.to_wire()]}
+    otlp = trace_to_otlp(doc, {"job.id": "j1"})
+    assert otlp == JO.trace_to_otlp(doc, {"job.id": "j1"})
+    spans = list(iter_spans(otlp))
+    assert len(spans) == 2
+    for s in spans:
+        assert len(s["traceId"]) == 32
+        assert s["traceId"].endswith("deadbeefdeadbeef")
+        assert len(s["spanId"]) == 16
+    proc = {s["name"]: s for s in spans}
+    assert proc["plugin.fbp.process"]["parentSpanId"] == \
+        "aaa1".rjust(16, "0")
+    attrs = {a["key"]: a["value"]
+             for a in proc["plugin.fbp.process"]["attributes"]}
+    assert attrs["flops"] == {"doubleValue": 1e9}
+    assert attrs["gang"] == {"intValue": "2"}
+    assert attrs["ok"] == {"boolValue": True}
+    assert attrs["tag"] == {"stringValue": "x"}
+    procs = [{a["key"]: a["value"] for a in rs["resource"]["attributes"]}
+             ["service.instance.id"]["stringValue"]
+             for rs in otlp["resourceSpans"]]
+    assert procs == ["broker", "w0"]
+
+
+def test_trace_to_otlp_accepts_live_trace_and_open_spans():
+    tr = Trace("job-7", worker_id="w1")
+    with tr.span("attempt", attempt=1):
+        tr.record("compile", 1.0, 2.0)
+    open_span = tr.begin("lease")
+    spans = list(iter_spans(trace_to_otlp(tr)))
+    assert len(spans) == len(tr.spans()) == 3
+    (lease,) = [s for s in spans if s["name"] == "lease"]
+    assert lease["endTimeUnixNano"] == lease["startTimeUnixNano"]
+    tr.finish(open_span)
+
+
+def test_otlp_id_handles_non_hex_ids():
+    doc = {"trace_id": "not hex at all!", "spans": [
+        Span("a", 0.0, 1.0, span_id="zzz").to_wire()]}
+    one = list(iter_spans(trace_to_otlp(doc)))[0]
+    two = list(iter_spans(trace_to_otlp(doc)))[0]
+    assert one["traceId"] == two["traceId"]
+    int(one["traceId"], 16)
+    assert len(one["traceId"]) == 32 and len(one["spanId"]) == 16
+
+
+def test_metrics_to_otlp_shapes():
+    snap = {"jobs.completed": 3, "queue.depth": 2.5,
+            "bad.scrape": float("nan"),
+            "job.latency.e2e": {"count": 3, "sum": 0.6, "p50": 0.2,
+                                "p95": 0.3, "p99": 0.3},
+            "not_a_metric": "text", "flag": True}
+    otlp = metrics_to_otlp(snap, identity="w9", now=100.0)
+    want = JO.metrics_to_otlp(snap, identity="w9", now=100.0)
+    # NaN != NaN: compare the documents as JSON text
+    import json
+    assert json.dumps(otlp, sort_keys=True) == json.dumps(
+        want, sort_keys=True)
+    (rm,) = otlp["resourceMetrics"]
+    metrics = {m["name"]: m for m in rm["scopeMetrics"][0]["metrics"]}
+    assert set(metrics) == {"jobs.completed", "queue.depth",
+                            "bad.scrape", "job.latency.e2e"}
+    assert metrics["jobs.completed"]["sum"]["isMonotonic"] is True
+    assert metrics["bad.scrape"]["gauge"]["dataPoints"] == []
+
+
+def test_otlp_spool_write_sanitise_evict(tmp_path):
+    import json
+    spool = OtlpSpool(str(tmp_path / "otlp"), max_files=2)
+    tr = Trace("job-1")
+    tr.record("a", 0.0, 1.0)
+    p1 = spool.export_trace("job/../1 x", tr)
+    assert os.path.basename(p1) == "trace-job_.._1_x.otlp.json"
+    with open(p1) as fh:
+        assert len(list(iter_spans(json.load(fh)))) == 1
+    p2 = spool.put("two", {"resourceSpans": []})
+    os.utime(p1, (1, 1))
+    os.utime(p2, (2, 2))
+    p3 = spool.put("three", {"resourceSpans": []})
+    assert len(spool) == 2
+    assert not os.path.exists(p1)
+    assert os.path.exists(p2) and os.path.exists(p3)
+    with pytest.raises(ValueError):
+        OtlpSpool(str(tmp_path / "x"), max_files=0)

@@ -674,8 +674,9 @@ def test_gang_batch_matches_serial(rng):
 
 def test_gang_members_keep_their_own_constants(rng):
     """A gang whose members' constants differ and whose plugin has no
-    batched hook runs the step once per member: each member gets its
-    own bias, bit for bit as alone."""
+    batched hook runs the step once per member, counted as a gang
+    fallback (never a quiet solo run): each member gets its own bias,
+    bit for bit as alone."""
     a = rng.normal(size=(3, 4, 4)).astype(np.float32)
     q = JobQueue()
     sched = PipelineScheduler(
@@ -688,6 +689,7 @@ def test_gang_members_keep_their_own_constants(rng):
     finally:
         sched.shutdown()
     assert sched.gangs_run == 1
+    assert sched.gang_fallbacks == 1
     for w, j in zip((1, 2, 3), jobs):
         got = j.runner.transport.read(j.runner.datasets["d"])
         np.testing.assert_array_equal(got, a + np.float32(w))

@@ -18,7 +18,7 @@ from repro_torch.core.process_list import ProcessListError
 from repro_torch.service import (WireError, chain_signature, from_spec,
                                  register_plugin, registered_plugins,
                                  registry_spec, to_spec)
-from repro_torch.service.wire import _valid_params
+from repro_torch.service.wire import LOCAL_PARAMS, _valid_params
 from repro_torch.tomo import SyntheticTomoLoader, standard_chain
 
 try:
@@ -192,13 +192,18 @@ def test_jax_v2_streaming_spec_loads_streaming():
     assert chain_signature(batch) == chain_signature(pl)
 
 
-def test_port_spec_names_the_device_the_jax_package_rejects():
-    """What the cross-service check will meet: the port's loader writes
-    its ``device``, which the JAX package's ``from_spec`` refuses."""
+def test_port_spec_loads_in_the_jax_package_and_back():
+    """The loader's ``device`` stays off the wire (where a job runs is
+    the service's choice): a spec the port writes loads in the JAX
+    package's ``from_spec`` and gives the same spec back, and the port
+    loads the JAX package's spec on the device its caller names."""
     spec = to_spec(standard_chain(n_det=16, n_angles=16, device="cpu"))
-    assert spec["plugins"][0]["params"]["device"] == "cpu"
-    with pytest.raises(JS.WireError, match="device"):
-        JS.from_spec(spec)
+    assert "device" not in spec["plugins"][0]["params"]
+    assert JS.to_spec(JS.from_spec(spec)) == spec
+    jspec = JS.to_spec(JT.standard_chain(n_det=16, n_angles=16))
+    pl = from_spec(jspec, device="cpu")
+    assert pl.entries[0].params["device"] == "cpu"
+    assert to_spec(pl) == jspec == spec
 
 
 # ------------------------------------------------- property tests
@@ -219,7 +224,8 @@ if HAVE_HYPOTHESIS:
     def _valid_entries(draw):
         name = draw(st.sampled_from(_WIRE_NAMES))
         entry = {"plugin": name}
-        declared = sorted(_REG[name].parameters)
+        # the wire's parameters: where a plugin computes stays off it
+        declared = sorted(set(_REG[name].parameters) - set(LOCAL_PARAMS))
         if declared:
             params = draw(st.dictionaries(st.sampled_from(declared),
                                           _json_values, max_size=3))
