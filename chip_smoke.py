@@ -72,6 +72,26 @@ Phases, each fatal on failure:
    accessed and peak memory, its flops and bytes equal to the kernels'
    ``cost()`` counts for the gang launch, and no critical SLO rule may
    fire;
+3e. remote workers: ``PipelineService(workers_remote=True)`` (a broker
+   on 127.0.0.1:0) and worker processes from ``spawn_local_workers``
+   (``--transport cuda``, gangs of up to 4, a shared checkpoint
+   directory, each with its own empty kernel-library store).  Worker A
+   runs the chain at 2560 x 1801 x 2 rows first: it must build the
+   library (a ``kernels.build`` span) and publish it.  Phase 3d's sweep
+   is then leased by A as one gang: every gang step's process span
+   records one launch of its kernel (read from ``GET /jobs/{id}/trace``;
+   the launches happen in A's process), no fallback, each variant held
+   against phase 3d's result for its cutoff (rtol 1e-3, atol 1e-4).  A
+   cold worker B registers and must report ``prefetched`` >= 1; A is
+   paused (SIGSTOP) while B leases the 2-row chain, whose trace must
+   show ``executable.fetch``, no ``kernels.build`` and ``nvcc_runs`` 0
+   on its ``kernels.load`` span, with A's result bit for bit.  Last, a
+   checkpointed 2-row chain with ``slow_identity`` (from
+   ``tests/torch_slow_plugins.py``, which the workers ``--import``)
+   after the correction: the worker holding its lease is SIGKILLed after
+   its first ``checkpoint.save``; the survivor must finish it with
+   ``resumed_from`` >= 1, bit for bit ``PluginRunner`` on the card in
+   this process;
 4. chain parity: one small scan through the chain on the card with the
    kernels and on the CPU with the plain versions (rtol 1e-3, atol 1e-4);
 5. the serving path: granite-8b at full width (36 layers, d_model 4096,
@@ -98,9 +118,10 @@ Phases, each fatal on failure:
 The line before the last is a JSON object ``{"kernels": [...]}`` (the
 correction row also gives the gang launch, ``batched_*``, and the
 spectrum-scale row the per-member launch of a 4-variant sweep); the
-last line is ``{"ok": true, "device": {...}}``.  Phases 3a-3d print one
+last line is ``{"ok": true, "device": {...}}``.  Phases 3a-3e print one
 ``{"service_gang": ...}``, ``{"streaming": ...}``,
-``{"stream_resume": ...}`` and ``{"http_service": ...}`` line each.
+``{"stream_resume": ...}``, ``{"http_service": ...}`` and
+``{"remote_workers": ...}`` line each.
 Every bound is computed from the kernels' own ``cost()`` counts, the
 numbers the service's process spans carry.  Without a CUDA device,
 or without the repository's ``src/repro_torch`` beside this file, it
@@ -189,6 +210,11 @@ SWEEP = {"cutoffs": [1.0, 0.8, 0.6, 0.4], "n_rows": 4}
 WORKFLOW_ROWS = 2
 #: seconds phase 3d waits for the sweep or the workflow
 HTTP_WAIT_S = 600
+#: phase 3e: rows of the solo and the kill/resume jobs, the broker's lease
+#: TTL (s), the kill/resume job's pause (s) in its slow step, the largest
+#: gang a worker leases, and seconds the phase waits for any one thing
+REMOTE = {"n_rows": 2, "lease_ttl": 5.0, "delay": 3.0, "max_batch": 4}
+REMOTE_WAIT_S = 600
 
 
 def fail(msg: str) -> None:
@@ -286,11 +312,12 @@ def bp_slice_sweep() -> dict:
 
 
 def http_service_phase(dev, compare, wrappers, costs,
-                       rays_on_detector) -> dict:
+                       rays_on_detector) -> tuple[dict, np.ndarray]:
     """Phase 3d: ``PipelineService`` on the card driven over HTTP by
     ``PipelineClient``: a 4-value cutoff sweep as one gang, a 2-node
     workflow, and the first variant's telemetry.  Returns the phase's
-    numbers; fails on any check."""
+    numbers and the sweep's stacked result (phase 3e's reference); fails
+    on any check."""
     import torch
     from repro_torch.core import CudaTransport, PluginRunner
     from repro_torch.kernels.sino_filter.ref import make_filter
@@ -420,7 +447,7 @@ def http_service_phase(dev, compare, wrappers, costs,
                                 torch.from_numpy(stacked[k]).to(dev), want,
                                 1e-3, 1e-4))
             del r, want
-        del stacked, scan
+        del scan
         # -- the workflow: the chain, then downsample + quantify
         down = {"version": 1, "plugins": [
             {"plugin": "upstream_loader",
@@ -476,7 +503,259 @@ def http_service_phase(dev, compare, wrappers, costs,
                       "step_costs": step_costs, "ready": ready["ready"],
                       "slo_firing": slo["firing"]},
         "workflow": {"n_rows": WORKFLOW_ROWS, "wall_s": workflow_s,
-                     "state": wsnap["state"]}}
+                     "state": wsnap["state"]}}, stacked
+
+
+def remote_workers_phase(dev, sweep_ref: np.ndarray) -> dict:
+    """Phase 3e: a broker-mode ``PipelineService`` and worker processes
+    on the card (see the module docstring).  ``sweep_ref`` is phase 3d's
+    stacked sweep result.  Returns the phase's numbers; fails on any
+    check, with the workers' logs."""
+    import importlib
+    import os
+    import signal
+    import threading
+
+    from repro_torch.core import CudaTransport, PluginRunner
+    from repro_torch.service import (PipelineClient, PipelineService,
+                                     from_spec, to_spec)
+    from repro_torch.service.worker import spawn_local_workers
+    from repro_torch.tomo import standard_chain
+
+    t_phase = time.perf_counter()
+    n_det, n_ang, n_rows = MAIN["n_det"], MAIN["n_angles"], REMOTE["n_rows"]
+    cutoffs = SWEEP["cutoffs"]
+    tmp = Path(tempfile.mkdtemp(prefix="chip-remote-"))
+    tests_dir = str(ROOT / "tests")
+    sys.path.insert(0, tests_dir)
+    importlib.import_module("torch_slow_plugins")   # the broker admits it
+    svc = PipelineService(device=dev, workers_remote=True,
+                          lease_ttl=REMOTE["lease_ttl"], sweep_interval=0.2,
+                          executables_dir=str(tmp / "spool"))
+    host, port = svc.serve(host="127.0.0.1", port=0)
+    client = PipelineClient(f"http://{host}:{port}", timeout=REMOTE_WAIT_S)
+    procs, logs = {}, {}
+
+    def spawn(wid):
+        logs[wid] = open(tmp / f"{wid}.log", "w")
+        procs[wid] = spawn_local_workers(
+            client.base_url, 1, transport="cuda", device=str(dev),
+            max_batch=REMOTE["max_batch"], poll=0.05,
+            checkpoint_dir=str(tmp / "ck"), worker_ids=[wid],
+            executables_dir=str(tmp / f"w{wid}"),
+            imports=("torch_slow_plugins",), pythonpath_extra=(tests_dir,),
+            stdout=logs[wid])[0]
+
+    def die(msg):
+        for wid, log in logs.items():
+            log.flush()
+            tail = (tmp / f"{wid}.log").read_text()[-3000:]
+            print(f"--- worker {wid} log\n{tail}", file=sys.stderr)
+        fail(f"remote workers: {msg}")
+
+    def until(cond, what):
+        deadline = time.time() + REMOTE_WAIT_S
+        while True:
+            got = cond()
+            if got:
+                return got
+            if time.time() > deadline:
+                die(f"timed out waiting for {what}")
+            time.sleep(0.05)
+
+    def registered(wid):
+        return until(lambda: client.workers().get(wid), f"worker {wid}")
+
+    def done(jid, what):
+        snap = client.wait(jid, timeout=REMOTE_WAIT_S)
+        if snap["state"] != "done":
+            die(f"{what}: {snap['state']}: {snap.get('error')}")
+        return snap
+
+    def spans(jid, name=None):
+        got = client.trace(jid)["spans"]
+        return [sp for sp in got if name is None or sp["name"] == name]
+
+    def wall(sps):
+        return sum(sp["end"] - sp["start"] for sp in sps)
+
+    def step_launches(jid):
+        out = {}
+        for sp in spans(jid):
+            for key, n in sp.get("attrs", {}).items():
+                if key.startswith("launches."):
+                    out[key.split(".", 1)[1]] = \
+                        out.get(key.split(".", 1)[1], 0) + n
+        return out
+
+    def held(name, got, want):
+        err = float(np.max(np.abs(got.astype(np.float64) - want)))
+        if not np.allclose(got, want, rtol=1e-3, atol=1e-4):
+            die(f"{name}: max abs err {err:.3e} beyond rtol 1e-3, atol 1e-4")
+        return err
+
+    chain_spec = to_spec(standard_chain(n_det=n_det, n_angles=n_ang,
+                                        n_rows=n_rows))
+    one_each = {"correction": 1, "spectrum_scale": 1, "backprojection": 1}
+    try:
+        # -- A: the first job builds the library (empty store) and
+        # publishes it to the broker's spool
+        spawn("A")
+        registered("A")
+        ja = client.submit(chain_spec, job_id="remote-a")
+        sa = done(ja, "A's first job")
+        if not spans(ja, "kernels.build"):
+            die("A's first job built no kernel library")
+        a_build_s = wall(spans(ja, "kernels.build"))
+        if step_launches(ja) != one_each:
+            die(f"A's first job launched {step_launches(ja)}")
+        res_a = client.result(ja)
+        spool = svc.broker.executables.stats()
+        if spool["entries"] < 1:
+            die("A published no library to the broker's spool")
+        # -- phase 3d's sweep, leased by A as one gang
+        t0 = time.perf_counter()
+        reply = client.sweep(
+            standard_chain(n_det=n_det, n_angles=n_ang,
+                           n_rows=SWEEP["n_rows"]),
+            {"plugin": "sinogram_filter", "param": "cutoff",
+             "values": cutoffs})
+        snap = client.wait_sweep(reply["sweep_id"], timeout=REMOTE_WAIT_S)
+        sweep_wall_s = time.perf_counter() - t0
+        if snap["state"] != "done":
+            die(f"sweep: {snap['state']}")
+        proc = [sp for sp in spans(reply["job_ids"][0])
+                if sp.get("attrs", {}).get("phase") == "process"]
+        if {sp["attrs"].get("gang") for sp in proc} != {len(cutoffs)}:
+            die(f"sweep: steps ran as gangs of "
+                f"{[sp['attrs'].get('gang') for sp in proc]}")
+        fallbacks = sum(len(spans(j, "gang.fallback"))
+                        for j in reply["job_ids"])
+        if fallbacks or step_launches(reply["job_ids"][0]) != one_each:
+            die(f"sweep: {fallbacks} fallbacks, launches "
+                f"{step_launches(reply['job_ids'][0])}")
+        if {s["worker_id"] for s in snap["variants"]} != {"A"}:
+            die(f"sweep: leased by {[s['worker_id'] for s in snap['variants']]}")
+        stacked = client.sweep_result(reply["sweep_id"])
+        sweep_errs = [held(f"sweep variant {k} (cutoff {c}) vs phase 3d",
+                           stacked[k], sweep_ref[k])
+                      for k, c in enumerate(cutoffs)]
+        sweep_bitwise = bool(np.array_equal(stacked, sweep_ref))
+        uploads = [sp for j in reply["job_ids"]
+                   for sp in spans(j, "result.upload")]
+        upload_mb = stacked[0].nbytes / 1e6 * len(uploads)
+        process_s = wall(proc)
+        del stacked
+        # -- B: a cold worker with an empty store prefetches the library
+        spawn("B")
+        registered("B")
+        until(lambda: client.workers()["B"]["prefetched"] >= 1,
+              "B to report its prefetch")
+        os.kill(procs["A"].pid, signal.SIGSTOP)   # B takes the next job
+        try:
+            jb = client.submit(chain_spec, job_id="remote-b")
+            until(lambda: client.status(jb)["worker_id"] == "B",
+                  "B to lease its first job")
+        finally:
+            os.kill(procs["A"].pid, signal.SIGCONT)
+        sb = done(jb, "B's first job")
+        names_b = [sp["name"] for sp in spans(jb)]
+        loads = spans(jb, "kernels.load")
+        if "executable.fetch" not in names_b or "kernels.build" in names_b \
+                or len(loads) != 1 or loads[0]["attrs"]["nvcc_runs"] != 0:
+            die(f"B's first job: spans {names_b}, kernels.load "
+                f"{[sp['attrs'] for sp in loads]}")
+        if step_launches(jb) != one_each:
+            die(f"B's first job launched {step_launches(jb)}")
+        res_b = client.result(jb)
+        if not np.array_equal(res_b, res_a):
+            die(f"B's result differs from A's (max abs err "
+                f"{float(np.max(np.abs(res_b - res_a))):.3e})")
+        # -- kill and resume: whichever worker leases the job is killed
+        # after its first checkpoint; the other finishes it
+        kill_spec = dict(chain_spec, plugins=list(chain_spec["plugins"]))
+        kill_spec["plugins"].insert(2, {
+            "plugin": "slow_identity", "params": {"delay": REMOTE["delay"]},
+            "in_datasets": ["tomo"], "out_datasets": ["tomo"]})
+        jk = client.submit(kill_spec, job_id="remote-kill")
+        ref = {}
+
+        def reference():           # this process, on the card
+            r = PluginRunner(from_spec(kill_spec, device=dev),
+                             CudaTransport(dev))
+            ref["recon"] = r.transport.read(r.run()["recon"])
+
+        ref_thread = threading.Thread(target=reference)
+        ref_thread.start()
+        snap = until(lambda: (lambda s: s if s["state"] == "running"
+                              and s["plugin_index"] >= 1
+                              and s["worker_id"] else None)(
+                                  client.status(jk)),
+                     "the kill job's first checkpoint")
+        victim = snap["worker_id"]
+        os.kill(procs[victim].pid, signal.SIGKILL)
+        procs[victim].wait(timeout=60)
+        t_kill = time.perf_counter()
+        snap_k = done(jk, "the kill/resume job")
+        resume_s = time.perf_counter() - t_kill
+        if snap_k["resumed_from"] < 1 or snap_k["worker_id"] == victim:
+            die(f"kill/resume: resumed_from {snap_k['resumed_from']} on "
+                f"{snap_k['worker_id']} (victim {victim})")
+        ref_thread.join(timeout=REMOTE_WAIT_S)
+        res_k = client.result(jk)
+        if "recon" not in ref or not np.array_equal(res_k, ref["recon"]):
+            die("kill/resume: the survivor's result differs from the "
+                "in-process run")
+        st = client.stats()
+        b_spans = spans(jb)
+        report = {
+            "workers": sorted(procs), "lease_ttl": REMOTE["lease_ttl"],
+            "spool": spool,
+            "a_nvcc_build_s": a_build_s,
+            "b_prefetched": client.workers()["B"]["prefetched"],
+            "b_prefetch_s": wall(sp for sp in b_spans
+                                 if sp["name"] == "executable.prefetch"),
+            "b_fetch_s": wall(sp for sp in b_spans if sp["name"] in (
+                "executable.fetch", "executable.deserialize")),
+            "b_load_s": wall(loads),
+            "b_nvcc_runs": loads[0]["attrs"]["nvcc_runs"],
+            # submission to the result on the broker, its clock
+            "a_first_result_s": sa["finished_at"] - sa["submitted_at"],
+            "b_first_result_s": sb["finished_at"] - sb["submitted_at"],
+            "a_simulate_s": wall(spans(ja, "plugin.synthetic_tomo_loader"
+                                           ".setup")),
+            "b_simulate_s": wall(spans(jb, "plugin.synthetic_tomo_loader"
+                                           ".setup")),
+            "sweep": {"variants": len(cutoffs), "gang": len(cutoffs),
+                      "wall_s": sweep_wall_s, "process_s": process_s,
+                      "variants_per_s": len(cutoffs) / process_s,
+                      "step_s": {sp["attrs"]["plugin"]:
+                                 sp["end"] - sp["start"] for sp in proc},
+                      "step_launches": one_each, "gang_fallbacks": 0,
+                      "max_abs_err_vs_phase_3d": sweep_errs,
+                      "bit_for_bit_vs_phase_3d": sweep_bitwise},
+            "result_upload_mb": upload_mb,
+            "result_upload_mb_per_s": upload_mb / wall(uploads),
+            "b_vs_a_max_abs_err": 0.0,
+            "kill": {"victim": victim, "survivor": snap_k["worker_id"],
+                     "resumed_from": snap_k["resumed_from"],
+                     "attempt": snap_k["attempt"],
+                     "kill_to_done_s": resume_s,
+                     "max_abs_err_vs_in_process": 0.0},
+            "leases_expired": st["leases_expired"],
+            "jobs_requeued": st["jobs_requeued"],
+            "phase_s": time.perf_counter() - t_phase}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.kill(p.pid, signal.SIGCONT)
+                p.kill()
+            p.wait(timeout=60)
+        for log in logs.values():
+            log.close()
+        svc.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return report
 
 
 def spans_of(spans: list, plugin: str) -> dict:
@@ -1080,13 +1359,18 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 3d. the HTTP service on the card: a sweep, a workflow, telemetry
-    http_report = http_service_phase(
+    http_report, sweep_result = http_service_phase(
         dev, compare, wrappers,
         costs={"correction": corr_cost, "spectrum_scale": sf_cost,
                "backprojection": bp_cost},
         rays_on_detector=rays_on_detector)
     print(json.dumps({"http_service": http_report}))
     torch.cuda.empty_cache()
+
+    # -- 3e. remote workers: a broker and worker processes on the card
+    print(json.dumps({"remote_workers": remote_workers_phase(
+        dev, sweep_result)}), flush=True)
+    del sweep_result
 
     # -- 4. chain parity: kernels on the card vs plain versions on the CPU
     pgeom = ParallelGeometry(PARITY["n_angles"], PARITY["n_det"],

@@ -7,6 +7,15 @@ first launch, from the sources in the checkout, into ``build/kernels/``
 at the repository root; the library's file name carries a hash of the
 sources and flags, so an edited source is never served a stale build.
 
+A process may instead be given a resolver (:func:`use_resolver`): a
+callable that returns the path of the library to load.  A broker-mode
+worker passes its compile cache's, which looks in the worker's own disk
+tier, then asks the broker, and only then runs ``nvcc`` into that
+directory (``service.compile_cache.CompileCache.kernel_library``).
+Each ``nvcc`` build is counted (:data:`nvcc_runs`) and recorded as a
+``kernels.build`` span on the current trace; the load is a
+``kernels.load`` span.
+
 Nothing here runs at import: the CPU tests import every module on a host
 without ``nvcc`` or a card.
 """
@@ -19,16 +28,23 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
+from typing import Callable
 
 import torch
 
 from ..device import nvcc_path
+from ..obs.trace import current_trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v", *ARCH]
+
+#: how many times this process ran ``nvcc`` (a library found on disk or
+#: fetched from a broker is no run)
+nvcc_runs = 0
 
 
 def sources() -> list[Path]:
@@ -44,21 +60,36 @@ def _digest(nvcc: str) -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile and link the kernel library if this exact build is not on
-    disk yet; returns its path.  Raises with the compiler's output when
-    ``nvcc`` is missing or a source does not compile."""
+def _nvcc() -> str:
     nvcc = nvcc_path()
     if nvcc is None:
         raise RuntimeError(
             "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
             "the CUDA kernels cannot be built on this host")
-    lib = BUILD_DIR / f"libtomo_kernels-{_digest(nvcc)}.so"
+    return nvcc
+
+
+def digest() -> str:
+    """The digest of this checkout's sources and flags and the compiler's
+    path: what names one exact build of the library."""
+    return _digest(_nvcc())
+
+
+def build(directory: str | Path | None = None) -> Path:
+    """Compile and link the kernel library into ``directory`` (default
+    :data:`BUILD_DIR`) if this exact build is not there yet; returns its
+    path.  Raises with the compiler's output when ``nvcc`` is missing or
+    a source does not compile."""
+    global nvcc_runs
+    nvcc = _nvcc()
+    directory = Path(directory) if directory is not None else BUILD_DIR
+    lib = directory / f"libtomo_kernels-{_digest(nvcc)}.so"
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    directory.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=directory))
     procs: list[subprocess.Popen] = []
+    t0 = time.time()
     try:
         objs = [work / f"{src.stem}.o" for src in sources()]
         procs = [subprocess.Popen([nvcc, *FLAGS, "-c", str(src), "-o",
@@ -66,6 +97,8 @@ def build() -> Path:
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for src, obj in zip(sources(), objs)]
+        with _LOCK:
+            nvcc_runs += 1
         logs = [p.communicate()[0] for p in procs]
         failed = [(src.name, log) for src, p, log
                   in zip(sources(), procs, logs) if p.returncode != 0]
@@ -78,7 +111,7 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
                                f"{link.stderr}")
-        (BUILD_DIR / "build.log").write_text("\n".join(
+        (directory / "build.log").write_text("\n".join(
             f"--- {src.name}\n{log}" for src, log in zip(sources(), logs)))
         os.replace(work / lib.name, lib)   # atomic for concurrent builders
     finally:
@@ -87,29 +120,51 @@ def build() -> Path:
                 p.kill()
                 p.wait()
         shutil.rmtree(work, ignore_errors=True)
+    tr = current_trace()
+    if tr is not None:
+        tr.record("kernels.build", t0, time.time(),
+                  attrs={"library": lib.name, "sources": len(sources())})
     return lib
 
 
 #: guards the first build and load: the service's worker threads may
 #: make their first launches together, and each must find the one
 #: library, built once
-_LOCK = threading.Lock()
+_LOCK = threading.RLock()
 _LIB: ctypes.CDLL | None = None
 _FUNCS: dict[tuple[str, tuple], ctypes._CFuncPtr] = {}
+_RESOLVER: Callable[[], Path] | None = None
+
+
+def use_resolver(resolver: Callable[[], str | Path] | None) -> None:
+    """Have this process's first launch load the library at
+    ``resolver()`` instead of building into :data:`BUILD_DIR` (None
+    restores the default).  Set it before the first launch: the library
+    is resolved and loaded once per process."""
+    global _RESOLVER
+    with _LOCK:
+        _RESOLVER = resolver
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use, once, whichever
-    thread asks first; the others wait for it)."""
+    """The loaded kernel library (resolved or built on first use, once,
+    whichever thread asks first; the others wait for it)."""
     global _LIB
     lib = _LIB
     if lib is not None:
         return lib
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
+            path = Path(_RESOLVER() if _RESOLVER is not None else build())
+            t0 = time.time()
+            lib = ctypes.CDLL(str(path))
             lib.tomo_error_string.argtypes = [ctypes.c_int]
             lib.tomo_error_string.restype = ctypes.c_char_p
+            tr = current_trace()
+            if tr is not None:
+                tr.record("kernels.load", t0, time.time(),
+                          attrs={"library": path.name,
+                                 "nvcc_runs": nvcc_runs})
             _LIB = lib
         return _LIB
 

@@ -7,17 +7,22 @@ and verify every reconstruction against a serial ``PluginRunner``.
 Three modes:
 
 * **demo** (default) — submit ``--jobs`` synthetic scans in-process,
-  drain, verify::
+  drain, verify; with ``--workers-remote N`` the same scans go over HTTP
+  to a broker and N worker processes pull them::
 
       PYTHONPATH=src python -m repro_torch.launch.pipeline_serve --jobs 4
       PYTHONPATH=src python -m repro_torch.launch.pipeline_serve --jobs 8 \\
           --workers 1 --batch --n-det 2560 --n-angles 1801 --n-rows 8
+      PYTHONPATH=src python -m repro_torch.launch.pipeline_serve --jobs 4 \\
+          --workers-remote 2
 
 * **server** — bind the JSON-over-HTTP front end and serve until
   interrupted (``--serve 0`` picks a free port and prints it)::
 
       PYTHONPATH=src python -m repro_torch.launch.pipeline_serve \\
           --serve 8973 --batch
+      PYTHONPATH=src python -m repro_torch.launch.pipeline_serve \\
+          --serve 8973 --workers-remote 2      # broker + 2 workers
 
 * **client** — talk to a running server (the port's or the JAX
   package's), including parameter sweeps, which the service runs as one
@@ -29,15 +34,14 @@ Three modes:
           sweep --demo-chain --param sinogram_filter.cutoff=0.4:1.0:4 \\
           --metric sharpness --wait --out sweep.npy
 
-Jobs run on the card unless ``--device cpu`` is given.  Broker-mode
-workers (``--workers-remote``) are not ported yet: the flag exits
-non-zero naming ROADMAP.md "Next" D1 part two, and so does the client's
-``cluster`` view, whose endpoint only a broker answers.
+Jobs run on the card unless ``--device cpu`` is given (spawned workers
+take the same ``--device`` and ``--transport``).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 from typing import Any
@@ -54,7 +58,7 @@ from ..kernels.sino_filter.kernel import scale_spectrum_cuda
 from ..service import (METRICS, CheckpointStore, CompileCache, JobQueue,
                        PipelineClient, PipelineScheduler, PipelineService,
                        ServiceError, to_spec)
-from ..service.server import BROKER_MODE
+from ..service.worker import spawn_local_workers
 from ..tomo import standard_chain
 
 _EPILOG = """\
@@ -76,13 +80,6 @@ scheduling notes:
   the gang — so for identical-chain workloads --workers does NOT
   multiply gang throughput.
 """
-
-#: what is not ported yet, and the ROADMAP.md item that brings it
-_LATER = {
-    "workers_remote": BROKER_MODE,
-    "cluster": 'the cluster scoreboard is served by broker mode only, '
-               'which is not ported yet: ROADMAP.md "Next" D1 part two',
-}
 
 #: the kernels of the chain, by the name the launch counts are reported
 KERNELS = {"correction": correct_cuda, "spectrum_scale": scale_spectrum_cuda,
@@ -168,8 +165,19 @@ def _build_parser() -> argparse.ArgumentParser:
                          "this directory (bounded ring)")
     ap.add_argument("--workers-remote", type=int, default=None,
                     metavar="N",
-                    help="not ported yet (" + _LATER["workers_remote"]
-                         + ")")
+                    help="broker mode: spawn N worker SUBPROCESSES "
+                         "pulling jobs over HTTP (demo), or serve the "
+                         "broker for external workers (--serve; N may "
+                         "be 0)")
+    ap.add_argument("--lease-ttl", type=float, default=15.0,
+                    help="broker mode: seconds a lease survives "
+                         "without a worker heartbeat before the job is "
+                         "requeued")
+    ap.add_argument("--shared-fs", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="broker mode: workers write results straight "
+                         "into the broker's results_dir instead of "
+                         "uploading over HTTP")
     ap.add_argument("--cost-analysis",
                     action=argparse.BooleanOptionalAction, default=False,
                     help="--transport cuda: attach per-step flops, "
@@ -272,31 +280,141 @@ def _demo_main(args) -> dict[str, Any]:
     return summary
 
 
+def _spawn(args, url: str, n: int) -> list:
+    """``n`` worker processes for the broker at ``url``, on the demo's
+    device and transport (gangs of up to ``--batch-max`` with
+    ``--batch``)."""
+    return spawn_local_workers(
+        url, n, transport=args.transport, device=args.device,
+        checkpoint_dir=args.checkpoint_dir, shared_fs=args.shared_fs,
+        token=args.token,
+        max_batch=args.batch_max if args.batch else 1,
+        cost_analysis=args.cost_analysis)
+
+
+def _stop(workers: list) -> None:
+    """Terminate spawned workers; kill any that outlive 10 s."""
+    for p in workers:
+        if p.poll() is None:
+            p.terminate()
+    for p in workers:
+        try:
+            p.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
 def _serve_main(args) -> None:
-    """Serve the HTTP front end until interrupted."""
-    cache = CompileCache()
-    checkpoints = (CheckpointStore(args.checkpoint_dir)
-                   if args.checkpoint_dir else None)
-    service = PipelineService(
-        device=args.device, transport_factory=_transport_factory(args, cache),
-        n_workers=args.workers, max_pending=args.max_pending,
-        max_history=args.max_history, checkpoints=checkpoints,
-        batch_identical=args.batch, batch_max=args.batch_max,
-        fuse=args.fuse, compile_cache=cache, token=args.token,
-        trace_spool=args.trace_spool)
-    host, port = service.serve(host=args.host, port=args.serve)
-    print(f"pipeline service listening on http://{host}:{port}  "
-          f"({args.workers} workers, transport={args.transport}, device="
-          f"{service.device}{', gang-batched' if args.batch else ''}"
-          f"{', checkpointed' if checkpoints else ''}"
-          f"{', cost analysis' if args.cost_analysis else ''})",
-          flush=True)
+    """Serve the HTTP front end until interrupted: the local scheduler,
+    or with ``--workers-remote N`` a broker and N spawned workers."""
+    workers: list = []
+    if args.workers_remote is not None:
+        service = PipelineService(
+            device=args.device, workers_remote=True,
+            max_pending=args.max_pending, max_history=args.max_history,
+            lease_ttl=args.lease_ttl, token=args.token,
+            trace_spool=args.trace_spool)
+        host, port = service.serve(host=args.host, port=args.serve)
+        workers = _spawn(args, f"http://{host}:{port}", args.workers_remote)
+        print(f"pipeline broker listening on http://{host}:{port}  "
+              f"({len(workers)} local worker processes, transport="
+              f"{args.transport}, device={service.device}, lease_ttl="
+              f"{args.lease_ttl}s; attach more with `python -m "
+              f"repro_torch.service.worker --url http://{host}:{port}`)",
+              flush=True)
+    else:
+        cache = CompileCache()
+        checkpoints = (CheckpointStore(args.checkpoint_dir)
+                       if args.checkpoint_dir else None)
+        service = PipelineService(
+            device=args.device,
+            transport_factory=_transport_factory(args, cache),
+            n_workers=args.workers, max_pending=args.max_pending,
+            max_history=args.max_history, checkpoints=checkpoints,
+            batch_identical=args.batch, batch_max=args.batch_max,
+            fuse=args.fuse, compile_cache=cache, token=args.token,
+            trace_spool=args.trace_spool)
+        host, port = service.serve(host=args.host, port=args.serve)
+        print(f"pipeline service listening on http://{host}:{port}  "
+              f"({args.workers} workers, transport={args.transport}, "
+              f"device={service.device}"
+              f"{', gang-batched' if args.batch else ''}"
+              f"{', checkpointed' if checkpoints else ''}"
+              f"{', cost analysis' if args.cost_analysis else ''})",
+              flush=True)
     try:
         while True:
             time.sleep(3600)
     except KeyboardInterrupt:
         print("shutting down")
     finally:
+        _stop(workers)
+        service.stop()
+
+
+def _remote_demo(args) -> dict[str, Any]:
+    """The multi-host demo: one queue, N worker processes.  Submit
+    ``--jobs`` scans over HTTP, let the worker subprocesses pull them,
+    verify every reconstruction against a serial ``PluginRunner``."""
+    if args.workers_remote < 1:
+        raise SystemExit("the demo needs --workers-remote >= 1")
+    service = PipelineService(
+        device=args.device, workers_remote=True,
+        max_pending=max(args.max_pending, args.jobs),
+        lease_ttl=args.lease_ttl)
+    host, port = service.serve(port=0)
+    url = f"http://{host}:{port}"
+    workers = _spawn(args, url, args.workers_remote)
+    client = PipelineClient(url)
+    try:
+        t0 = time.time()
+        ids = [client.submit(_chain(args, seed=i), job_id=f"tomo-{i:03d}",
+                             metadata={"seed": i})
+               for i in range(args.jobs)]
+        snaps = [client.wait(jid, timeout=600) for jid in ids]
+        wall = time.time() - t0
+        for sn in snaps:
+            extra = (f" (resumed at plugin {sn['resumed_from']})"
+                     if sn["resumed_from"] else "")
+            print(f"  {sn['job_id']}: {sn['status']:>10s}  "
+                  f"worker={sn['worker_id']}  wall={sn['wall']:.2f}s"
+                  f"{extra}")
+        failed = [sn for sn in snaps if sn["state"] != "done"]
+        if failed:
+            for sn in failed:
+                print(sn["error"])
+            raise SystemExit(f"{len(failed)}/{len(snaps)} jobs failed")
+        worst = None
+        if args.verify:
+            worst = 0.0
+            for sn in snaps:
+                got = client.result(sn["job_id"])
+                ref = PluginRunner(_chain(args, seed=sn["metadata"]["seed"]),
+                                   CudaTransport(args.device))
+                want = ref.transport.read(ref.run()["recon"])
+                np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+                worst = max(worst, float(np.max(np.abs(got - want))))
+            print(f"verified {len(snaps)} reconstructions against serial "
+                  f"PluginRunner (max |Δ|={worst:.2e})")
+        st = client.stats()
+        per_worker = {w: ws["jobs_done"] for w, ws in st["workers"].items()}
+        print(f"{args.jobs} jobs in {wall:.2f}s -> {args.jobs / wall:.2f} "
+              f"jobs/s  ({args.workers_remote} worker processes, "
+              f"transport={args.transport})")
+        print(f"per-worker jobs done: {per_worker}  "
+              f"requeues: {st['jobs_requeued']}")
+        summary = {"jobs": args.jobs, "wall_s": wall,
+                   "jobs_per_s": args.jobs / wall,
+                   "workers": args.workers_remote,
+                   "per_worker_done": per_worker,
+                   "jobs_requeued": st["jobs_requeued"],
+                   "leases_expired": st["leases_expired"],
+                   "max_abs_err_vs_serial": worst}
+        print(json.dumps({"pipeline_serve_remote": summary}))
+        return summary
+    finally:
+        _stop(workers)
         service.stop()
 
 
@@ -481,8 +599,14 @@ def _client_parser() -> argparse.ArgumentParser:
                     help="--follow poll period in seconds")
     ev.add_argument("--format", choices=("json", "text"),
                     default="json")
-    sub.add_parser("cluster", help="not ported yet ("
-                   + _LATER["cluster"] + ")")
+    cl = sub.add_parser(
+        "cluster", help="GET the per-worker scoreboard (/cluster)",
+        description="Broker mode: every registered worker's card, "
+                    "transport, heartbeat staleness, active leases with "
+                    "time-to-expiry, last error and warm-pool prefetch "
+                    "count.")
+    cl.add_argument("--format", choices=("json", "text"),
+                    default="json")
     sub.add_parser("jobs", help="GET every job's snapshot")
     sub.add_parser("stats", help="GET scheduler + compile-cache stats")
     sub.add_parser("metrics",
@@ -653,6 +777,26 @@ def _event_line(rec: dict) -> str:
             + (f"  {attrs}" if attrs else ""))
 
 
+def _cluster_text(doc: dict) -> str:
+    rows = [("WORKER", "DEVICE", "TRANSPORT", "LEASES", "STALE_S", "DONE",
+             "FAILED", "PREFETCHED", "LAST_ERROR")]
+    for w in doc["workers"]:
+        leases = ",".join(ls["job_id"] for ls in w["leases"]) or "-"
+        err = w.get("last_error") or "-"
+        if len(err) > 40:
+            err = err[:37] + "..."
+        rows.append((w["worker_id"], w.get("device") or "-",
+                     w.get("transport") or "-", leases,
+                     f"{w['heartbeat_staleness_s']:.1f}",
+                     w["jobs_done"], w["jobs_failed"],
+                     w["prefetched"], err))
+    return (_table(rows)
+            + f"\nactive_leases={doc['active_leases']}  "
+              f"leases_expired={doc['leases_expired']}  "
+              f"jobs_requeued={doc['jobs_requeued']}  "
+              f"lease_ttl={doc['lease_ttl']}")
+
+
 def _events_main(client: PipelineClient, args) -> None:
     """One page of the event log, or --follow: tail it forever."""
     if not args.follow:
@@ -688,8 +832,6 @@ def _save(arr: np.ndarray, out: str) -> None:
 
 def _client_main(argv: list[str]) -> None:
     args = _client_parser().parse_args(argv)
-    if args.action == "cluster":
-        raise SystemExit(_LATER["cluster"])
     client = PipelineClient(args.url, token=args.token)
     show = lambda doc: print(json.dumps(doc, indent=2))  # noqa: E731
     try:
@@ -763,6 +905,10 @@ def _client_main(argv: list[str]) -> None:
                   else json.dumps(snap, indent=2))
         elif args.action == "events":
             _events_main(client, args)
+        elif args.action == "cluster":
+            doc = client.cluster()
+            print(_cluster_text(doc) if args.format == "text"
+                  else json.dumps(doc, indent=2))
         elif args.action == "jobs":
             show(client.jobs())
         elif args.action == "stats":
@@ -781,16 +927,18 @@ def main(argv: list[str] | None = None) -> dict[str, Any] | None:
     the plugin steps alone, per-job wall, the first job's seconds per
     step, the largest difference from the serial runs, gangs run and
     fallen back to solo, the compile cache's counters, and each kernel's
-    launches while the scheduler ran."""
+    launches while the scheduler ran; with ``--workers-remote`` jobs/s
+    over the worker processes, jobs done per worker, requeues and the
+    largest difference from the serial runs."""
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["client"]:
         return _client_main(argv[1:])
     args = _build_parser().parse_args(argv)
-    if args.workers_remote is not None:
-        raise SystemExit(_LATER["workers_remote"])
     resolve_device(args.device)
     if args.serve is not None:
         return _serve_main(args)
+    if args.workers_remote is not None:
+        return _remote_demo(args)
     return _demo_main(args)
 
 

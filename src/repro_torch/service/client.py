@@ -475,19 +475,27 @@ class PipelineClient:
                         mesh_shape: list[int] | None = None,
                         max_batch: int = 1,
                         shared_fs: bool = False,
-                        sweeps: bool = True) -> dict[str, Any]:
+                        sweeps: bool = True,
+                        device: str | None = None,
+                        transport: str | None = None) -> dict[str, Any]:
         """Register a worker process (``POST /workers``) with its
         capabilities (``sweeps=False`` keeps the worker out of
-        parameter-sweep fan-outs).  Returns ``{"worker_id",
-        "worker_secret", "lease_ttl", "hot_executables"}`` (plus
-        ``"results_dir"`` for shared-fs workers).  The minted
-        ``worker_secret`` is remembered per worker_id and attached to
-        every subsequent lease/progress/complete/upload automatically.
-        409 if the server is not in broker mode."""
-        reply = self._request("POST", "/workers", {
+        parameter-sweep fan-outs; ``device``, the card's name, and
+        ``transport`` are sent only when given).  Returns
+        ``{"worker_id", "worker_secret", "lease_ttl",
+        "hot_executables"}`` (plus ``"results_dir"`` for shared-fs
+        workers).  The minted ``worker_secret`` is remembered per
+        worker_id and attached to every subsequent
+        lease/progress/complete/upload automatically.  409 if the server
+        is not in broker mode."""
+        body: dict[str, Any] = {
             "worker_id": worker_id, "plugins": plugins,
             "mesh_shape": mesh_shape, "max_batch": max_batch,
-            "shared_fs": shared_fs, "sweeps": sweeps})
+            "shared_fs": shared_fs, "sweeps": sweeps}
+        for k, v in (("device", device), ("transport", transport)):
+            if v is not None:
+                body[k] = v
+        reply = self._request("POST", "/workers", body)
         if isinstance(reply.get("worker_secret"), str):
             self._worker_secrets[reply["worker_id"]] = \
                 reply["worker_secret"]

@@ -41,7 +41,8 @@ Endpoints (JSON unless noted; see ``docs/service.md``):
                             ``X-Start-Frame`` header (409 on
                             out-of-order/duplicate; docs/streaming.md)
 ``POST /jobs/{id}/eof``     end of acquisition for a streaming job
-``GET /jobs/{id}/frames``   buffered frames from ``?start=`` on
+``GET /jobs/{id}/frames``   buffered frames from ``?start=`` on — how
+                            broker-mode workers pull the stream
 ``GET /jobs/{id}/preview``  partial reconstruction over the frames
                             ingested so far (before EOF)
 ``GET /metrics``            Prometheus text exposition of the metrics
@@ -50,29 +51,35 @@ Endpoints (JSON unless noted; see ``docs/service.md``):
 ``GET /plugins``            the wire-format plugin registry
 ``GET /events``             structured event log tail (``?since=``
                             cursor + ``?limit=``)
+``GET /cluster``            per-worker scoreboard (broker mode: leases,
+                            heartbeat staleness, last error, prefetch)
 ``GET /slo``                SLO rule states + alert lifecycle snapshot
 ``GET /healthz``            liveness probe; ``?ready=1`` consults the
                             SLO engine (503 while a critical rule fires)
 ==========================  ==========================================
 
-The port's counterpart of ``repro.service.server`` in local mode: the
-scheduler runs in this process.  The worker protocol (``/workers``,
-``/jobs/lease``, progress/complete, result and executable uploads,
-``/executables``, ``/cluster``) answers 409 "not serving in broker
-mode", as the JAX package's local mode does; broker mode itself comes
-with the workers (ROADMAP.md "Next" D1 part two).
+Broker mode (``workers_remote=True``) serves the worker protocol
+(docs/worker-protocol.md) instead of running jobs in this process:
+``POST /workers``, ``POST /jobs/lease``, ``POST /jobs/{id}/progress``,
+``POST /jobs/{id}/complete``, ``PUT /jobs/{id}/result``, ``GET``/``PUT
+/executables/{sig}`` (the kernel library's warm pool; reads
+token-authed), ``GET /executables``, ``GET /workers`` and ``GET
+/cluster``.  In local mode those routes answer 409 "not serving in
+broker mode", as the JAX package's local mode does.
 
-Results are tensors where their jobs left them, on the card for a
+The port's counterpart of ``repro.service.server``.  Results are tensors where their jobs left them, on the card for a
 ``CudaTransport``.  A result is streamed in blocks of rows, one
 device-to-host copy per block, so serving a large reconstruction never
 holds the whole volume in host memory; a chunk-addressed file
-(``ChunkedFile``) streams chunk-row slabs straight off its file.
+(``ChunkedFile``) streams chunk-row slabs straight off its file, and a
+worker's ``.npy`` (broker mode) streams off the result spool.
 """
 from __future__ import annotations
 
 import hmac
 import io
 import json
+import os
 import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -94,15 +101,12 @@ from .checkpoint import CheckpointStore
 from .compile_cache import CompileCache
 from .job import Job, JobState
 from .queue import JobQueue, QueueFull
-from .scheduler import PipelineScheduler
+from .scheduler import (LeaseLost, PipelineScheduler, WorkerAuthError,
+                        WorkerBroker)
 from .sweep import SweepError, SweepGroup, SweepManager
 from .wire import WireError, from_spec, registry_spec
 from .workflow import WorkflowError, WorkflowGroup, WorkflowManager
 
-#: where broker mode is tracked
-BROKER_MODE = ('broker-mode workers (workers_remote=True, '
-               '--workers-remote) are not ported yet: ROADMAP.md "Next" '
-               'D1 part two')
 #: bytes of one device-to-host copy when a result is streamed
 RESULT_BLOCK_BYTES = 16 << 20
 
@@ -145,6 +149,10 @@ class PipelineService:
                  fuse: bool = False,
                  compile_cache: CompileCache | None = None,
                  workers_remote: bool = False,
+                 lease_ttl: float = 15.0,
+                 sweep_interval: float | None = None,
+                 results_dir: str | None = None,
+                 executables_dir: str | None = None,
                  max_sweep_variants: int = 64,
                  token: str | None = None,
                  trace_spool: TraceSpool | str | None = None,
@@ -177,11 +185,21 @@ class PipelineService:
         ``slo_interval`` paces the background evaluator that walks
         alerts through pending → firing → resolved.
 
-        ``workers_remote=True`` (broker mode) raises NotImplementedError:
-        ROADMAP.md "Next" D1 part two.
+        ``workers_remote=True`` is **broker mode**: instead of
+        in-process scheduler threads, detached :class:`PipelineWorker`
+        processes register over HTTP and pull jobs via leases
+        (``lease_ttl``/``sweep_interval``/``results_dir`` configure the
+        :class:`WorkerBroker`; ``executables_dir`` roots its spool of
+        framed kernel libraries, ``GET/PUT /executables/{sig}``, default
+        a temp dir).  The workers compute; ``device`` is where specs are
+        admitted and sweep metrics scored.  ``transport_factory``,
+        ``cost_analysis``, ``n_workers``, ``checkpoints`` and the gang
+        options are worker-side concerns and are ignored here.
         """
-        if workers_remote:
-            raise NotImplementedError(BROKER_MODE)
+        if executables_dir is not None and not workers_remote:
+            raise ValueError("executables_dir roots the broker's spool "
+                             "(workers_remote=True); a local service "
+                             "builds its kernels into build/kernels/")
         if transport_factory is not None and cost_analysis:
             raise ValueError("cost_analysis applies to the default "
                              "transports; a transport_factory's "
@@ -191,7 +209,7 @@ class PipelineService:
         if compile_cache is None:
             compile_cache = CompileCache()
         self.compile_cache = compile_cache
-        if transport_factory is None:
+        if transport_factory is None and not workers_remote:
             dev, cache = self.device, compile_cache
             transport_factory = lambda job: CudaTransport(  # noqa: E731
                 dev, compile_cache=cache, cost_analysis=cost_analysis)
@@ -207,12 +225,23 @@ class PipelineService:
         self.queue.events = self.events
         self.slo = SloEngine(self.metrics, self.events, spec=slo_spec)
         self.slo_interval = max(0.05, float(slo_interval))
-        self.scheduler = PipelineScheduler(
-            self.queue, transport_factory=transport_factory,
-            n_workers=n_workers, checkpoints=checkpoints,
-            batch_identical=batch_identical, batch_max=batch_max,
-            fuse=fuse, compile_cache=self.compile_cache,
-            metrics=self.metrics, events=self.events)
+        self.scheduler: PipelineScheduler | None = None
+        self.broker: WorkerBroker | None = None
+        if workers_remote:
+            self.broker = WorkerBroker(
+                self.queue, lease_ttl=lease_ttl,
+                sweep_interval=sweep_interval, results_dir=results_dir,
+                metrics=self.metrics, events=self.events,
+                executables_dir=executables_dir)
+        else:
+            self.scheduler = PipelineScheduler(
+                self.queue, transport_factory=transport_factory,
+                n_workers=n_workers, checkpoints=checkpoints,
+                batch_identical=batch_identical, batch_max=batch_max,
+                fuse=fuse, compile_cache=self.compile_cache,
+                metrics=self.metrics, events=self.events)
+        #: what runs the jobs: the broker or the local scheduler
+        self.engine = self.broker if workers_remote else self.scheduler
         self.sweeps = SweepManager(self.queue, fetch=self._variant_array,
                                    max_variants=max_sweep_variants,
                                    device=self.device)
@@ -236,9 +265,9 @@ class PipelineService:
 
     def _wire_gauges(self) -> None:
         """Bind the callback gauges: these read live state at scrape
-        time rather than being pushed on every event.  The persistent
-        executable tier, leases and workers belong to broker mode and
-        read 0 here, as in the JAX package's local mode."""
+        time rather than being pushed on every event.  The spool, leases
+        and workers belong to broker mode and read 0 in local mode, as in
+        the JAX package's."""
         m = self.metrics
         m.gauge("queue.depth").set_function(self.queue.pending)
         m.gauge("queue.oldest_age_s").set_function(
@@ -247,10 +276,18 @@ class PipelineService:
             lambda: self.compile_cache.hits)
         m.gauge("compile.cache.misses").set_function(
             lambda: self.compile_cache.misses)
-        for name in ("compile.cache.disk.hits", "compile.cache.disk.misses",
-                     "executables.spool.bytes", "leases.active",
-                     "workers.registered"):
-            m.gauge(name).set_function(lambda: 0)
+        m.gauge("compile.cache.disk.hits").set_function(
+            lambda: self.compile_cache.disk_hits)
+        m.gauge("compile.cache.disk.misses").set_function(
+            lambda: self.compile_cache.disk_misses)
+        broker = self.broker
+        zero = lambda: 0                 # noqa: E731
+        m.gauge("executables.spool.bytes").set_function(
+            broker.executables.total_bytes if broker is not None else zero)
+        m.gauge("leases.active").set_function(
+            broker.n_active_leases if broker is not None else zero)
+        m.gauge("workers.registered").set_function(
+            broker.n_workers if broker is not None else zero)
         m.gauge("slo.firing").set_function(
             lambda: float(self.slo.n_firing()))
         m.gauge("events.head").set_function(
@@ -301,37 +338,46 @@ class PipelineService:
         return job
 
     def cancel(self, job_id: str) -> dict[str, Any]:
-        """Cancel ``job_id`` if still queued.  Returns ``{"job_id",
-        "cancelled", "state"}``; ``cancelled`` is False for a job
-        already dispatched or terminal.  Raises KeyError if unknown."""
+        """Cancel ``job_id`` if still queued — or, in broker mode, flag
+        a LEASED job so its worker's next heartbeat gets a ``cancelled``
+        verdict.  Returns ``{"job_id", "cancelled", "state"}`` (plus
+        ``"pending": True`` for the leased case, where the terminal
+        state lands at the next heartbeat); ``cancelled`` is False for a
+        job already dispatched (local mode) or terminal.  Raises
+        KeyError if unknown."""
         cancelled = self.queue.cancel(job_id)
         job = self.queue.job(job_id)
+        out = {"job_id": job_id, "cancelled": cancelled,
+               "state": job.state.value}
         # a queue-side cancel (and any dependency cascade it triggers)
-        # is observed by the queue's terminal hooks, so outcome metrics
-        # stay exactly-once
-        return {"job_id": job_id, "cancelled": cancelled,
-                "state": job.state.value}
+        # is observed by the queue's terminal hooks — registered by both
+        # scheduler and broker — so outcome metrics stay exactly-once
+        if not cancelled and self.broker is not None \
+                and self.broker.request_cancel(job_id):
+            out.update(cancelled=True, pending=True)
+        return out
 
     # -- streaming ingest (docs/streaming.md) ---------------------------
     def ingest_frames(self, job_id: str, frames: np.ndarray,
                       start: int) -> dict[str, Any]:
         """Accept one contiguous frame chunk (``POST /jobs/{id}/frames``)
-        — :meth:`PipelineScheduler.ingest_frames`: out-of-order and
-        duplicate chunks raise RuntimeError (HTTP 409), an unknown job
-        KeyError (404)."""
-        return self.scheduler.ingest_frames(job_id, frames, start)
+        — :meth:`PipelineScheduler.ingest_frames` or, in broker mode,
+        :meth:`WorkerBroker.ingest_frames`: out-of-order and duplicate
+        chunks raise RuntimeError (HTTP 409), an unknown job KeyError
+        (404)."""
+        return self.engine.ingest_frames(job_id, frames, start)
 
     def mark_eof(self, job_id: str) -> dict[str, Any]:
-        """End of acquisition (``POST /jobs/{id}/eof``) —
-        :meth:`PipelineScheduler.mark_eof`."""
-        return self.scheduler.mark_eof(job_id)
+        """End of acquisition (``POST /jobs/{id}/eof``)."""
+        return self.engine.mark_eof(job_id)
 
     def preview(self, job_id: str) -> tuple[np.ndarray, int]:
         """Partial reconstruction over the frames ingested so far
         (``GET /jobs/{id}/preview``) — ``(array, frames_covered)``, from
-        the live runner.  Raises RuntimeError/ValueError (→ 409) while
-        no preview can be produced yet."""
-        return self.scheduler.preview(job_id)
+        the live runner, or in broker mode the newest preview the worker
+        uploaded.  Raises RuntimeError/ValueError (→ 409) while no
+        preview can be produced yet."""
+        return self.engine.preview(job_id)
 
     # -- parameter sweeps (docs/sweeps.md) ------------------------------
     def submit_sweep(self, envelope: dict[str, Any]) -> SweepGroup:
@@ -345,7 +391,9 @@ class PipelineService:
 
     def cancel_sweep(self, sweep_id: str) -> dict[str, Any]:
         """Cancel every live variant of ``sweep_id``
-        (``DELETE /sweeps/{id}``).  Raises KeyError if unknown."""
+        (``DELETE /sweeps/{id}``) — queued variants cancel immediately,
+        leased ones at their worker's next heartbeat.  Raises KeyError
+        if unknown."""
         return self.sweeps.cancel(sweep_id, self.cancel)
 
     # -- workflow DAGs (docs/workflows.md) ------------------------------
@@ -388,8 +436,12 @@ class PipelineService:
     def _variant_array(self, job_id: str, dataset: str | None = None
                        ) -> torch.Tensor | np.ndarray:
         """One DONE variant's result where its job left it (a tensor on
-        the transport's device; other backings read to the host) — the
-        SweepManager's ``fetch`` hook."""
+        the transport's device; other backings read to the host; a
+        worker's ``.npy``, memory-mapped) — the SweepManager's ``fetch``
+        hook."""
+        remote = self.result_file(job_id, dataset)
+        if remote is not None:
+            return np.load(remote[1], mmap_mode="r")
         ds, transport = self.result_dataset(job_id, dataset)
         if isinstance(ds.backing, torch.Tensor):
             return ds.backing
@@ -424,10 +476,10 @@ class PipelineService:
             self.slo.evaluate()
 
     def stats(self) -> dict[str, Any]:
-        """Scheduler counters + compile-cache hit rates + sweep and
-        workflow counters + the metrics-registry snapshot
+        """Scheduler (or broker) counters + compile-cache hit rates +
+        sweep and workflow counters + the metrics-registry snapshot
         (``GET /stats``)."""
-        out = self.scheduler.stats()
+        out = self.engine.stats()
         out["sweeps"] = self.sweeps.stats()
         out["workflows"] = self.workflows.stats()
         out["metrics"] = self.metrics.snapshot()
@@ -451,6 +503,10 @@ class PipelineService:
             raise RuntimeError(f"job {job_id!r} is {job.status!r}, "
                                f"not done")
         runner = job.runner
+        if runner is None and job.remote_results:
+            raise RuntimeError(          # broker mode: served from files
+                f"job {job_id!r} ran on a remote worker; its results "
+                f"are .npy files, not live datasets")
         if runner is None:
             raise RuntimeError(f"job {job_id!r} result was evicted "
                                f"(max_history)")
@@ -461,10 +517,41 @@ class PipelineService:
                 f"(available: {sorted(runner.datasets)})")
         return runner.datasets[name], runner.transport
 
+    def result_file(self, job_id: str, dataset: str | None = None
+                    ) -> tuple[str, str] | None:
+        """Broker-mode result lookup: ``(name, path)`` of the ``.npy`` a
+        remote worker handed over for ``dataset`` (default: the first
+        reported), or None when this job has no remote results
+        (in-process path).
+
+        Raises:
+            KeyError: unknown job, or remote results exist but not for
+                ``dataset``.
+            RuntimeError: job not DONE yet.
+        """
+        job = self.queue.job(job_id)
+        if not job.remote_results:
+            return None
+        if job.state is not JobState.DONE:
+            raise RuntimeError(f"job {job_id!r} is {job.status!r}, "
+                               f"not done")
+        # dunder names (the streaming "__preview__" upload) are service
+        # plumbing, never a default result
+        name = dataset or next(
+            (k for k in job.remote_results if not k.startswith("__")),
+            next(iter(job.remote_results)))
+        path = job.remote_results.get(name)
+        if path is None or not os.path.exists(path):
+            raise KeyError(
+                f"job {job_id!r} has no result dataset {name!r} "
+                f"(available: {sorted(job.remote_results)})")
+        return name, path
+
     # -- lifecycle ------------------------------------------------------
     def serve(self, host: str = "127.0.0.1", port: int = 8080,
               block: bool = False) -> tuple[str, int]:
-        """Start the scheduler workers and the HTTP front end.
+        """Start the scheduler workers (or the broker's lease-expiry
+        sweep) and the HTTP front end.
 
         Args:
             host/port: bind address (``port=0`` picks an ephemeral port).
@@ -473,7 +560,7 @@ class PipelineService:
 
         Returns: the bound ``(host, port)``.
         """
-        self.scheduler.start()
+        self.engine.start()
         if self._slo_thread is None:
             self._slo_stop = threading.Event()
             self._slo_thread = threading.Thread(
@@ -501,7 +588,7 @@ class PipelineService:
 
     def stop(self) -> None:
         """Shut down the HTTP server (if serving), the SLO evaluator and
-        the scheduler workers."""
+        the scheduler workers or the broker's sweep thread."""
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -513,7 +600,7 @@ class PipelineService:
             self._slo_stop.set()
             self._slo_thread.join(timeout=10)
             self._slo_thread = None
-        self.scheduler.shutdown()
+        self.engine.shutdown()
 
 
 # ----------------------------------------------------------------------
@@ -629,6 +716,20 @@ class _PipelineHandler(BaseHTTPRequestHandler):
         self._error(409, "not serving in broker mode (start the service "
                          "with workers_remote=True / --workers-remote)")
 
+    def _send_file(self, path: str, headers: dict[str, str]) -> None:
+        """Stream a file block-wise: O(block) RAM however big it is."""
+        self.send_response(200)
+        self.send_header("Content-Length", str(os.path.getsize(path)))
+        for k, v in headers.items():
+            self.send_header(k, v)
+        self.end_headers()
+        with open(path, "rb") as fh:
+            while True:
+                block = fh.read(1 << 20)
+                if not block:
+                    break
+                self.wfile.write(block)
+
     def _send_array(self, arr: np.ndarray,
                     extra: dict[str, str] | None = None) -> None:
         """One in-RAM array as ``.npy`` bytes (previews, frame fetches —
@@ -667,8 +768,14 @@ class _PipelineHandler(BaseHTTPRequestHandler):
             except ValueError:
                 return self._error(400, "since/limit must be integers")
             return self._json(200, svc.events.since(since, limit=limit))
-        if path in ("/cluster", "/workers"):
-            return self._not_broker()
+        if path == "/cluster":
+            if svc.broker is None:
+                return self._not_broker()
+            return self._json(200, svc.broker.cluster())
+        if path == "/workers":
+            if svc.broker is None:
+                return self._not_broker()
+            return self._json(200, svc.broker.stats()["workers"])
         if path == "/stats":
             return self._json(200, svc.stats())
         if path == "/metrics":
@@ -711,12 +818,31 @@ class _PipelineHandler(BaseHTTPRequestHandler):
                 return self._json(200, svc.sweeps.status(sweep_id))
             except KeyError:
                 return self._error(404, f"unknown sweep {sweep_id!r}")
-        if path == "/executables" or _EXEC_RE.match(path):
-            # token-authed even though it is a read: worker-protocol
-            # surface, not a public monitoring endpoint
+        m = _EXEC_RE.match(path)
+        if path == "/executables" or m:
+            # token-authed even though it is a read: the hot list and the
+            # libraries are worker-protocol surface (code), not a public
+            # monitoring endpoint
             if self._reject_unauthorised():
                 return
-            return self._not_broker()
+            if svc.broker is None:
+                return self._not_broker()
+            if not m:
+                return self._json(200, {"hot": svc.broker.hot_executables()})
+            sig = m.group(1)
+            try:
+                payload = svc.broker.get_executable(sig)
+            except KeyError:
+                return self._error(404, f"unknown executable {sig!r}")
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Content-Length", str(len(payload)))
+            self.send_header("X-Executable-Sig", sig)
+            self.end_headers()
+            # in blocks: a library is a few MB
+            for i in range(0, len(payload), 1 << 20):
+                self.wfile.write(payload[i:i + (1 << 20)])
+            return
         m = _TRACE_RE.match(path)
         if m:
             return self._send_trace(unquote(m.group(1)),
@@ -800,11 +926,74 @@ class _PipelineHandler(BaseHTTPRequestHandler):
             return self._submit_sweep()
         if path == "/workflows":
             return self._submit_workflow()
-        if path in ("/workers", "/jobs/lease") or _PROGRESS_RE.match(path) \
-                or _COMPLETE_RE.match(path):
-            return self._not_broker()
+        if path == "/workers":
+            return self._broker_call(
+                lambda b, body: (201, b.register(body)))
+        if path == "/jobs/lease":
+            return self._broker_call(self._lease)
+        m = _PROGRESS_RE.match(path)
+        if m:
+            job_id = unquote(m.group(1))
+            return self._broker_call(
+                lambda b, body: (200, b.progress(
+                    job_id, self._worker_of(body), body)))
+        m = _COMPLETE_RE.match(path)
+        if m:
+            job_id = unquote(m.group(1))
+            return self._broker_call(
+                lambda b, body: (200, b.complete(
+                    job_id, self._worker_of(body), body)))
         self._drain_body()
         self._error(404, f"no route for POST {self.path}")
+
+    # -- worker-pull protocol (broker mode) -----------------------------
+    @staticmethod
+    def _worker_of(body: Any) -> str:
+        wid = body.get("worker_id") if isinstance(body, dict) else None
+        if not isinstance(wid, str):
+            raise WireError('body must carry a string "worker_id"')
+        return wid
+
+    @staticmethod
+    def _lease(broker: WorkerBroker, body: Any) -> tuple[int, Any]:
+        wid = _PipelineHandler._worker_of(body)
+        max_jobs = body.get("max_jobs", 1)
+        if not isinstance(max_jobs, int) or max_jobs < 1:
+            raise WireError(f"max_jobs must be a positive int, got "
+                            f"{max_jobs!r}")
+        timeout = body.get("timeout", 0.0)
+        if not isinstance(timeout, (int, float)) or timeout < 0 \
+                or timeout > 30:
+            raise WireError(f"timeout must be 0..30s, got {timeout!r}")
+        prefetched = body.get("prefetched")
+        if prefetched is not None and (
+                not isinstance(prefetched, int) or prefetched < 0
+                or isinstance(prefetched, bool)):
+            raise WireError(f"prefetched must be a non-negative int, "
+                            f"got {prefetched!r}")
+        return 200, {"jobs": broker.lease(
+            wid, max_jobs=max_jobs, timeout=float(timeout),
+            secret=body.get("worker_secret"), prefetched=prefetched)}
+
+    def _broker_call(self, fn) -> None:
+        """Run one worker-protocol operation: parse the JSON body, hand
+        it to ``fn(broker, body) -> (status, payload)``, map the shared
+        error contract (409 no-broker/lease-lost, 404 unknown, 403 bad
+        worker secret, 400 malformed)."""
+        if self.service.broker is None:
+            return self._not_broker()
+        try:
+            body = self._read_body()
+            code, payload = fn(self.service.broker, body)
+        except WireError as e:
+            return self._error(400, str(e))
+        except WorkerAuthError as e:
+            return self._error(403, str(e))
+        except LeaseLost as e:
+            return self._error(409, str(e))
+        except KeyError as e:
+            return self._error(404, f"unknown {e}")
+        self._json(code, payload)
 
     def _submit(self) -> None:
         try:
@@ -917,15 +1106,51 @@ class _PipelineHandler(BaseHTTPRequestHandler):
                                      "X-Count": str(arr.shape[0])})
 
     def do_PUT(self) -> None:
-        """Uploads from a leased worker (results, executables): broker
-        mode only."""
+        """Uploads from a leased worker (broker mode): raw ``.npy``
+        result bytes to ``/jobs/{id}/result?dataset=name``, or a framed
+        kernel library to ``/executables/{sig}`` — both identified by
+        ``X-Worker-Id`` + ``X-Worker-Secret`` headers."""
         if self._reject_unauthorised():
             return
-        path = urlparse(self.path).path.rstrip("/")
-        if _EXEC_RE.match(path) or _RESULT_RE.match(path):
+        url = urlparse(self.path)
+        path = url.path.rstrip("/")
+        m_exec, m_result = _EXEC_RE.match(path), _RESULT_RE.match(path)
+        if not (m_exec or m_result):
+            self._drain_body()
+            return self._error(404, f"no route for PUT {self.path}")
+        broker = self.service.broker
+        if broker is None:
             return self._not_broker()
-        self._drain_body()
-        self._error(404, f"no route for PUT {self.path}")
+        worker_id = self.headers.get("X-Worker-Id")
+        dataset = (parse_qs(url.query).get("dataset") or [None])[0]
+        if not worker_id or (m_result and not dataset):
+            self._drain_body()
+            return self._error(
+                400, "PUT needs an X-Worker-Id header (and ?dataset= for "
+                     "a result)")
+        length = int(self.headers.get("Content-Length") or 0)
+        payload = self.rfile.read(length) if length else b""
+        if not payload:
+            return self._error(400, "empty upload body")
+        secret = self.headers.get("X-Worker-Secret")
+        try:
+            if m_exec:
+                out = broker.put_executable(worker_id, secret,
+                                            m_exec.group(1), payload)
+            else:
+                job_id = unquote(m_result.group(1))
+                broker.store_result(job_id, worker_id, dataset, payload,
+                                    secret=secret)
+                out = {"job_id": job_id, "dataset": dataset}
+        except WireError as e:            # e.g. unsafe name, bad framing
+            return self._error(400, str(e))
+        except WorkerAuthError as e:
+            return self._error(403, str(e))
+        except LeaseLost as e:
+            return self._error(409, str(e))
+        except KeyError as e:
+            return self._error(404, f"unknown {e}")
+        self._json(200, {**out, "bytes": len(payload)})
 
     def do_DELETE(self) -> None:
         if self._reject_unauthorised():
@@ -965,6 +1190,11 @@ class _PipelineHandler(BaseHTTPRequestHandler):
     # -- result streaming -----------------------------------------------
     def _send_result(self, job_id: str, dataset: str | None) -> None:
         try:
+            remote = self.service.result_file(job_id, dataset)
+            if remote is not None:        # broker mode: stream the file
+                return self._send_file(remote[1], {
+                    "Content-Type": "application/x-npy",
+                    "X-Dataset": remote[0]})
             ds, _ = self.service.result_dataset(job_id, dataset)
             backing = ds.backing
             if not isinstance(backing, (torch.Tensor, ChunkedFile)):

@@ -559,3 +559,119 @@ def test_lm_prefill_with_kernel_matches_cpu(cuda):
     assert flash_attention_cuda.launches == n + cfg.n_layers
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
                                atol=2e-4)
+
+
+# ------------------------------------------------ broker-mode workers
+def _card_broker(**kw):
+    from repro_torch.service import PipelineClient, PipelineService
+    svc = PipelineService(workers_remote=True, lease_ttl=30.0, **kw)
+    host, port = svc.serve(port=0)
+    return svc, PipelineClient(f"http://{host}:{port}", timeout=300.0)
+
+
+def _stop_workers(workers):
+    for p in workers:
+        if p.poll() is None:
+            p.kill()
+    for p in workers:
+        p.wait(timeout=30)
+
+
+WORKER_CHAIN = dict(n_det=128, n_angles=96, n_rows=2, seed=0)
+
+
+def test_worker_process_gangs_on_the_card(cuda):
+    """A worker process on the card leases a 2-variant sweep as one
+    gang: each gang step's process span records one launch of its kernel
+    and no fallback; each variant matches the chain run on the card in
+    this process."""
+    from repro_torch.service.worker import spawn_local_workers
+    svc, client = _card_broker()
+    workers = spawn_local_workers(client.base_url, 1, max_batch=2)
+    try:
+        reply = client.sweep(standard_chain(**WORKER_CHAIN),
+                             [{"plugin": "sinogram_filter",
+                               "param": "cutoff", "values": [0.6, 1.0]}])
+        snap = client.wait_sweep(reply["sweep_id"], timeout=600)
+        assert snap["state"] == "done", snap
+        stacked = client.sweep_result(reply["sweep_id"])
+        for k, jid in enumerate(reply["job_ids"]):
+            proc = [s for s in client.trace(jid)["spans"]
+                    if s.get("attrs", {}).get("phase") == "process"]
+            launches = {k2: v for s in proc for k2, v in s["attrs"].items()
+                        if k2.startswith("launches.")}
+            assert launches == {"launches.correction": 1,
+                                "launches.spectrum_scale": 1,
+                                "launches.backprojection": 1}, proc
+            assert {s["attrs"]["gang"] for s in proc} == {2}
+            assert not any(s["name"] == "gang.fallback"
+                           for s in client.trace(jid)["spans"])
+            pl = standard_chain(**WORKER_CHAIN)
+            for e in pl.entries:
+                if e.cls.name == "sinogram_filter":
+                    e.params["cutoff"] = [0.6, 1.0][k]
+            r = PluginRunner(pl, CudaTransport(cuda))
+            np.testing.assert_allclose(
+                stacked[k], r.transport.read(r.run()["recon"]),
+                rtol=1e-3, atol=1e-4)
+    finally:
+        _stop_workers(workers)
+        svc.stop()
+
+
+def test_cold_store_backed_worker_fetches_the_library(cuda, tmp_path):
+    """Worker A builds the library into its empty store and publishes
+    it; a cold worker B with an empty store prefetches it and runs its
+    first job with ``executable.fetch``, no ``kernels.build`` and
+    ``nvcc_runs == 0``, giving A's result bit for bit."""
+    from repro_torch.service import to_spec
+    from repro_torch.service.worker import spawn_local_workers
+    svc, client = _card_broker(executables_dir=str(tmp_path / "spool"))
+    spec = to_spec(standard_chain(**WORKER_CHAIN))
+    workers = spawn_local_workers(client.base_url, 1, worker_ids=["A"],
+                                  executables_dir=str(tmp_path / "wA"))
+    try:
+        ja = client.submit(spec)
+        assert client.wait(ja, timeout=900)["state"] == "done"
+        names_a = [s["name"] for s in client.trace(ja)["spans"]]
+        assert "kernels.build" in names_a
+        _stop_workers(workers)
+        workers = spawn_local_workers(client.base_url, 1, worker_ids=["B"],
+                                      executables_dir=str(tmp_path / "wB"))
+        jb = client.submit(spec)
+        assert client.wait(jb, timeout=600)["state"] == "done"
+        spans = client.trace(jb)["spans"]
+        names = [s["name"] for s in spans]
+        assert "executable.fetch" in names and "kernels.build" not in names
+        (load,) = [s for s in spans if s["name"] == "kernels.load"]
+        assert load["attrs"]["nvcc_runs"] == 0
+        assert client.workers()["B"]["prefetched"] >= 1
+        np.testing.assert_array_equal(client.result(jb), client.result(ja))
+    finally:
+        _stop_workers(workers)
+        svc.stop()
+
+
+def test_two_workers_build_into_one_empty_directory(cuda, tmp_path):
+    """Two worker processes share one empty store and make their first
+    launches together: both jobs finish, and every library in the
+    directory is the same one."""
+    from repro_torch.service.worker import spawn_local_workers
+    svc, client = _card_broker()
+    store = tmp_path / "shared"
+    workers = spawn_local_workers(client.base_url, 2,
+                                  executables_dir=str(store))
+    try:
+        ids = [client.submit(standard_chain(**{**WORKER_CHAIN, "seed": s}))
+               for s in range(2)]
+        snaps = [client.wait(j, timeout=900) for j in ids]
+        assert [s["state"] for s in snaps] == ["done", "done"], snaps
+        libs = sorted(store.glob("*.so"))
+        assert len(list(store.glob("libtomo_kernels-*.so"))) == 1
+        assert len({p.read_bytes() for p in libs}) == 1
+        for jid in ids:
+            assert any(s["name"] == "kernels.load"
+                       for s in client.trace(jid)["spans"])
+    finally:
+        _stop_workers(workers)
+        svc.stop()

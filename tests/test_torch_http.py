@@ -323,9 +323,40 @@ def test_worker_routes_answer_409_as_the_jax_local_mode():
     assert answers[0] == answers[1] == [(409, True)] * len(calls)
 
 
-def test_broker_mode_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="D1 part two"):
-        PipelineService(device="cpu", workers_remote=True)
+def test_broker_mode_answers_the_worker_routes_as_the_jax_broker():
+    """Broker mode serves the worker protocol: the same calls get the
+    same status codes from the port's broker and the JAX package's
+    (registration, scoreboards, the warm pool's hot list and a missing
+    library, unknown workers and jobs, malformed uploads)."""
+    calls = [("POST", "/workers", {"worker_id": "w"}),
+             ("GET", "/cluster", None), ("GET", "/workers", None),
+             ("GET", "/executables", None),
+             ("GET", "/executables/" + "ab" * 16, None),
+             ("POST", "/jobs/lease", {"worker_id": "ghost"}),
+             ("POST", "/jobs/lease", {"worker_id": "w"}),
+             ("POST", "/jobs/j/progress", {"worker_id": "w"}),
+             ("POST", "/jobs/j/complete", {"worker_id": "w",
+                                           "state": "done"}),
+             ("PUT", "/jobs/j/result?dataset=recon", b"x"),
+             ("PUT", "/executables/" + "ab" * 16, b"x")]
+    answers = []
+    for jax in (False, True):
+        with _served(jax=jax, workers_remote=True) as (_, client):
+            got = []
+            for method, path, body in calls:
+                data = (body if isinstance(body, bytes)
+                        else None if body is None
+                        else json.dumps(body).encode())
+                req = urllib.request.Request(client.base_url + path,
+                                             data=data, method=method)
+                try:
+                    with urllib.request.urlopen(req, timeout=10) as r:
+                        got.append(r.status)
+                except urllib.error.HTTPError as e:
+                    got.append(e.code)
+            answers.append(got)
+    assert answers[0] == answers[1]
+    assert answers[0][:5] == [201, 200, 200, 200, 404]
 
 
 def test_trace_formats_and_cost_profile():

@@ -3,6 +3,7 @@ and its entry points never carry on on the CPU when the card is asked
 for and absent."""
 import ast
 import os
+import signal
 import subprocess
 import sys
 from pathlib import Path
@@ -19,7 +20,10 @@ from repro_torch.kernels.backproject.ops import backproject
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.launch import pipeline_serve, serve
 from repro_torch.models import build_model
-from repro_torch.service import JobQueue, PipelineScheduler, PipelineService
+from repro_torch.service import (JobQueue, PipelineClient,
+                                 PipelineScheduler, PipelineService)
+from repro_torch.service.worker import main as worker_main
+from repro_torch.service.worker import spawn_local_workers
 from repro_torch.tomo import ParallelGeometry, forward_project, \
     standard_chain
 
@@ -66,7 +70,11 @@ def test_port_imports_with_jax_and_reference_blocked():
                     "repro_torch.service", "repro_torch.service.server",
                     "repro_torch.service.client",
                     "repro_torch.service.sweep",
-                    "repro_torch.service.workflow", "repro_torch.obs.slo",
+                    "repro_torch.service.workflow",
+                    "repro_torch.service.worker",
+                    "repro_torch.service.compile_cache",
+                    "repro_torch.service.scheduler",
+                    "repro_torch.kernels.build", "repro_torch.obs.slo",
                     "repro_torch.obs.export", "repro_torch.kernels.tally",
                     "repro_torch.launch.pipeline_serve", *ops]],
         "print('imported')"])
@@ -102,9 +110,15 @@ def test_runner_without_transport_needs_the_card(no_cuda):
     lambda: PipelineService(),
     lambda: pipeline_serve.main(["client", "--url", "http://127.0.0.1:9",
                                  "ingest", "scan", "--synthetic"]),
+    lambda: worker_main(["--url", "http://127.0.0.1:9"]),
+    lambda: spawn_local_workers("http://127.0.0.1:9", 1),
+    lambda: PipelineService(workers_remote=True),
+    lambda: pipeline_serve.main(["--workers-remote", "1"]),
 ], ids=["resolve_device", "inmemory", "chunked", "forward_project",
         "build_model", "serve", "scheduler", "pipeline_serve",
-        "pipeline_service", "client_ingest_synthetic"])
+        "pipeline_service", "client_ingest_synthetic", "worker_main",
+        "spawn_local_workers", "pipeline_service_broker",
+        "pipeline_serve_workers_remote"])
 def test_entry_points_default_to_the_card(no_cuda, make):
     with pytest.raises(RuntimeError, match="cpu"):
         make()
@@ -150,21 +164,78 @@ def test_pipeline_serve_batch_max_bounds_the_gang():
     assert summary["max_abs_err_vs_serial"] < 1e-4
 
 
-@pytest.mark.parametrize("argv", [
-    ["--serve", "0", "--workers-remote", "0", "--device", "cpu"],
-    ["--workers-remote", "2", "--device", "cpu"],
-    ["client", "cluster"]],
-    ids=["serve", "workers_remote", "client"])
-def test_pipeline_serve_modes_not_ported_name_their_item(argv):
-    """Broker mode is what stays unported: served or in the demo, and
-    the client's cluster view, which only a broker answers."""
-    with pytest.raises(SystemExit, match='"Next" D1 part two'):
-        pipeline_serve.main(argv)
+def _broker_modes(mode, capsys):
+    """Drive one broker mode of ``pipeline_serve`` on the CPU and return
+    what it showed: the demo's summary, the served broker's scoreboard
+    (a subprocess, read over HTTP), or the client's cluster table."""
+    if mode == "workers_remote":
+        return pipeline_serve.main(["--workers-remote", "2", "--jobs", "2",
+                                    "--device", "cpu", "--n-det", "16",
+                                    "--n-angles", "12"])
+    if mode == "serve":
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.pipeline_serve",
+             "--serve", "0", "--workers-remote", "1", "--device", "cpu"],
+            stdout=subprocess.PIPE, text=True,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        try:
+            line = proc.stdout.readline()
+            url = line.split("listening on ")[1].split()[0]
+            client = PipelineClient(url, timeout=30.0)
+            jid = client.submit(standard_chain(n_det=16, n_angles=12,
+                                               n_rows=1, device="cpu"))
+            return line, client.wait(jid, timeout=120), client.cluster()
+        finally:
+            # an interrupt, as at a terminal: the server stops the
+            # workers it spawned before it exits
+            proc.send_signal(signal.SIGINT)
+            proc.wait(timeout=60)
+    svc = PipelineService(device="cpu", workers_remote=True)
+    host, port = svc.serve(port=0)
+    try:
+        PipelineClient(f"http://{host}:{port}").register_worker(
+            worker_id="w0", device="cpu", transport="cuda")
+        pipeline_serve.main(["client", "--url", f"http://{host}:{port}",
+                             "cluster", "--format", "text"])
+        return capsys.readouterr().out
+    finally:
+        svc.stop()
 
 
-def test_pipeline_service_broker_mode_names_its_item():
-    with pytest.raises(NotImplementedError, match='"Next" D1 part two'):
-        PipelineService(device="cpu", workers_remote=True)
+@pytest.mark.parametrize("mode", ["serve", "workers_remote", "client"])
+def test_pipeline_serve_broker_modes_on_the_cpu(mode, capsys):
+    """Broker mode served (a broker and a spawned worker answering a
+    job), in the demo (two worker processes, every job verified against
+    a serial run), and the client's cluster view."""
+    out = _broker_modes(mode, capsys)
+    if mode == "workers_remote":
+        assert out["jobs"] == 2 and out["max_abs_err_vs_serial"] == 0.0
+        assert sum(out["per_worker_done"].values()) == 2
+    elif mode == "serve":
+        line, snap, cluster = out
+        assert "pipeline broker listening" in line
+        assert snap["state"] == "done", snap
+        (w,) = cluster["workers"]
+        assert (w["device"], w["transport"], w["jobs_done"]) == \
+            ("cpu", "cuda", 1)
+    else:
+        assert out.splitlines()[0].split()[:3] == \
+            ["WORKER", "DEVICE", "TRANSPORT"]
+        assert out.splitlines()[1].split()[:3] == ["w0", "cpu", "cuda"]
+
+
+def test_pipeline_service_broker_mode_on_the_cpu():
+    """``workers_remote=True`` builds a broker instead of the scheduler;
+    its stats say so, and the local-mode-only ``executables_dir`` check
+    holds."""
+    svc = PipelineService(device="cpu", workers_remote=True)
+    try:
+        assert svc.scheduler is None and svc.engine is svc.broker
+        assert svc.stats()["mode"] == "broker"
+    finally:
+        svc.stop()
+    with pytest.raises(ValueError, match="broker"):
+        PipelineService(device="cpu", executables_dir="/nowhere")
 
 
 def test_pipeline_serve_cost_analysis_on_the_cpu(capsys):

@@ -488,11 +488,22 @@ def test_compile_cache_single_build_under_race():
     assert len(builds) == 1                  # losers waited, not rebuilt
 
 
-def test_compile_cache_persistent_tier_not_ported():
-    for kw in ({"store": "/nowhere"}, {"fetch": lambda s: None},
-               {"publish": lambda s, b: None}):
-        with pytest.raises(NotImplementedError, match="D3"):
-            CompileCache(**kw)
+def test_compile_cache_persistent_tier_arguments(tmp_path):
+    """``store``/``fetch``/``publish`` build the persistent tier, whose
+    counters appear as ``stats()["disk"]`` as in the JAX package; an
+    in-memory cache reports none."""
+    fetch, publish = (lambda s: None), (lambda s, b: None)
+    cache = CompileCache(store=str(tmp_path / "exe"), fetch=fetch,
+                         publish=publish)
+    assert cache.store.dir == str(tmp_path / "exe")
+    assert cache.fetch is fetch and cache.publish is publish
+    disk = cache.stats()["disk"]
+    assert {k: disk[k] for k in ("hits", "misses", "rejects", "uploads",
+                                 "entries", "bytes")} == dict.fromkeys(
+        ("hits", "misses", "rejects", "uploads", "entries", "bytes"), 0)
+    jax_disk = JS.CompileCache(store=str(tmp_path / "jax")).stats()["disk"]
+    assert set(disk) == set(jax_disk)
+    assert "disk" not in CompileCache().stats()
 
 
 class BiasFilter(BaseFilter):

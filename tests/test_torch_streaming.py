@@ -4,10 +4,16 @@ a runner fed random-size slabs through ``enable_streaming``/``feed``/
 preview mid-stream; bad feeds are rejected with the same messages;
 ``run()`` closes the transport on failure.  Plus: the port's streamed
 chain and preview against the JAX package's on the same slabs, a
-checkpoint mid-stream resumed by a fresh scheduler bit for bit, and a
+checkpoint mid-stream resumed by a fresh scheduler bit for bit, a
 streaming job driven by ``PipelineScheduler`` from a stream another
-thread fills."""
+thread fills, and the broker cases: a starved stream parks its lease, a
+worker's pump latency and preview reach the broker, and a worker process
+SIGKILLed mid-pump is resumed from its watermark by the survivor."""
+import importlib
+import os
+import signal
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -22,11 +28,15 @@ from repro_torch.core.patterns import PROJECTION
 from repro_torch.core.plugin import BaseFilter
 from repro_torch.core.process_list import ProcessList
 from repro_torch.service import (CheckpointStore, JobQueue, JobState,
-                                 PipelineScheduler, from_spec)
+                                 PipelineClient, PipelineScheduler,
+                                 PipelineService, PipelineWorker,
+                                 from_spec, wire)
+from repro_torch.service.worker import spawn_local_workers
 from repro_torch.tomo.plugins import HDF5LikeSaver, SyntheticTomoLoader
 
 #: the chain bound (tests/test_tomo_pipeline.py)
 CHAIN_TOL = {"rtol": 1e-3, "atol": 1e-4}
+TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
 def _spec(seed=0, n_det=16, n_angles=24, n_rows=1, streaming=True,
@@ -52,6 +62,17 @@ def _spec(seed=0, n_det=16, n_angles=24, n_rows=1, streaming=True,
     spec = {"version": 1, "plugins": plugins}
     if streaming:
         spec = {**spec, "version": 2, "streaming": True}
+    return spec
+
+
+def _slow_spec(seed, delay, **kw):
+    """:func:`_spec` with ``slow_identity`` after the correction, a
+    windowed step that sleeps ``delay`` per pumped slab."""
+    spec = _spec(seed=seed, **kw)
+    spec["plugins"].insert(2, {"plugin": "slow_identity",
+                               "params": {"delay": delay},
+                               "in_datasets": ["tomo"],
+                               "out_datasets": ["tomo"]})
     return spec
 
 
@@ -318,3 +339,146 @@ def test_checkpoint_mid_stream_resumes_in_fresh_scheduler(tmp_path):
     got = job2.runner.transport.read(job2.runner.datasets["recon"])
     np.testing.assert_array_equal(got, want)
     assert store.load("scan7") is None       # cleared on completion
+
+
+# ============================================================ broker mode
+@pytest.fixture
+def slow_plugins(monkeypatch):
+    """The test plugins (``torch_slow_plugins``) in a copy of the wire
+    registry, restored afterwards."""
+    monkeypatch.setattr(wire, "_REGISTRY", dict(wire._REGISTRY))
+    for cls in importlib.import_module("torch_slow_plugins").PLUGINS:
+        wire.register_plugin(cls)
+
+
+def _broker(lease_ttl, sweep_interval=0.1):
+    svc = PipelineService(device="cpu", workers_remote=True,
+                          lease_ttl=lease_ttl, sweep_interval=sweep_interval)
+    host, port = svc.serve(port=0)
+    return svc, PipelineClient(f"http://{host}:{port}", timeout=60.0)
+
+
+def test_starved_stream_parks_lease(tmp_path):
+    """A streaming job with no frames left to chew hands its lease back
+    (verdict ``parked``) instead of camping on it; once frames land the
+    job re-leases, restores the checkpoint's ingest watermark, and
+    finishes bit-identical."""
+    svc, client = _broker(lease_ttl=5.0)
+    spec = _spec(seed=31)
+    frames = _frames(spec)
+    w = PipelineWorker(client.base_url, device="cpu", worker_id="sw",
+                       poll=0.01, checkpoint_dir=str(tmp_path / "ck"),
+                       preview_interval=0.0)
+    try:
+        jid = client.submit(spec)
+        client.ingest(jid, frames[:6], 0)
+        w.register()
+        assert w.run_once() is True               # leases, feeds 6, parks
+        snap = client.status(jid)
+        assert snap["state"] == "queued", snap    # back in the queue...
+        assert snap["frames_consumed"] == 6
+        assert client.stats()["leases_expired"] == 0   # ...no expiry
+        assert any(line.startswith("jobs_parked ")
+                   and int(line.split()[1]) >= 1
+                   for line in client.metrics().splitlines())
+        client.ingest(jid, frames[6:], 6)
+        client.eof(jid)
+        assert w.run_once() is True               # resumes at frame 6
+        snap = client.wait(jid, timeout=60)
+        assert snap["state"] == "done", snap
+        assert snap["frames_consumed"] == frames.shape[0]
+        assert snap["attempt"] >= 2               # park ended lease #1
+        np.testing.assert_array_equal(client.result(jid),
+                                      _reference(spec))
+    finally:
+        svc.stop()
+
+
+def test_broker_mode_records_window_latency(tmp_path):
+    """``stream.window_latency_s`` is observed in broker mode too: the
+    worker times each ``pump`` and ships the measurement transiently on
+    its next progress post, where the broker folds it into the
+    histogram; the worker's preview lands on ``GET /jobs/{id}/preview``."""
+    svc, client = _broker(lease_ttl=5.0)
+    spec = _spec(seed=37)
+    frames = _frames(spec)
+    w = PipelineWorker(client.base_url, device="cpu", worker_id="lw",
+                       poll=0.01, checkpoint_dir=str(tmp_path / "ck"),
+                       preview_interval=0.001)
+    try:
+        jid = client.submit(spec)
+        client.ingest(jid, frames, 0)
+        client.eof(jid)
+        w.register()
+        deadline = time.time() + 120
+        while client.status(jid)["state"] not in ("done", "failed"):
+            w.run_once()
+            assert time.time() < deadline, client.status(jid)
+        assert client.status(jid)["state"] == "done"
+        want = _reference(spec)
+        np.testing.assert_array_equal(client.result(jid), want)
+        counts = {line.split()[0]: float(line.split()[1])
+                  for line in client.metrics().splitlines()
+                  if line and not line.startswith("#")}
+        assert counts.get("stream_window_latency_s_count", 0) >= 1, \
+            "broker mode never observed stream.window_latency_s"
+        arr, covered = client.preview(jid)
+        assert arr.shape == want.shape and covered == frames.shape[0]
+    finally:
+        svc.stop()
+
+
+def test_stream_worker_sigkill_resumes_from_watermark(tmp_path,
+                                                      slow_plugins):
+    """SIGKILL the worker mid-pump: the lease expires, the next owner
+    restores the checkpoint's ingest watermark, refetches the retained
+    frame buffers it never saw, and finishes bit-identical to batch."""
+    svc, client = _broker(lease_ttl=1.5)
+    workers = spawn_local_workers(
+        client.base_url, 2, transport="cuda", device="cpu",
+        checkpoint_dir=str(tmp_path / "ckpts"), poll=0.05, heartbeat=0.3,
+        imports=("torch_slow_plugins",), worker_ids=["w0", "w1"],
+        pythonpath_extra=(TESTS_DIR,))
+    by_id = dict(zip(["w0", "w1"], workers))
+    try:
+        spec = _slow_spec(seed=41, delay=1.5)     # 1.5 s per pumped slab
+        frames = _frames(spec)
+        jid = client.submit(spec)
+        client.ingest(jid, frames[:6], 0)
+        # first slab chewed + checkpointed (watermark 6)
+        deadline = time.time() + 120
+        while True:
+            snap = client.status(jid)
+            if snap.get("frames_consumed", 0) >= 6:
+                break
+            assert snap["state"] not in ("done", "failed"), snap
+            assert time.time() < deadline, f"slab never consumed: {snap}"
+            time.sleep(0.05)
+        # second slab: kill the owner mid-pump
+        client.ingest(jid, frames[6:12], 6)
+        while True:
+            snap = client.status(jid)
+            if snap["state"] == "running" and snap["worker_id"]:
+                break
+            assert snap["state"] not in ("done", "failed"), snap
+            assert time.time() < deadline, f"never re-leased: {snap}"
+            time.sleep(0.05)
+        victim = snap["worker_id"]
+        time.sleep(0.4)                           # into the slow pump
+        os.kill(by_id[victim].pid, signal.SIGKILL)
+        client.ingest(jid, frames[12:], 12)
+        client.eof(jid)
+        snap = client.wait(jid, timeout=120)
+        assert snap["state"] == "done", snap
+        assert snap["frames_consumed"] == frames.shape[0]
+        assert snap["attempt"] >= 2, snap
+        np.testing.assert_array_equal(client.result(jid),
+                                      _reference(spec))
+        assert client.stats()["leases_expired"] >= 1
+    finally:
+        for p in workers:
+            if p.poll() is None:
+                p.kill()
+        for p in workers:
+            p.wait(timeout=10)
+        svc.stop()

@@ -1,6 +1,7 @@
 """The port's parameter sweeps (``repro_torch.service.sweep``) against
-tests/test_sweep.py (its local-mode cases), on ``CudaTransport("cpu")``
-at 20 x 20 chains.
+tests/test_sweep.py, on ``CudaTransport("cpu")`` at 20 x 20 chains: its
+local-mode cases, and its broker cases with an in-process
+``PipelineWorker`` that leases a sweep as one gang.
 
 A sweep over N values of one tunable param expands into N variant jobs
 with one chain signature, admitted atomically, so the gang path runs
@@ -12,6 +13,7 @@ scored with torch where the volume lies, match the JAX package's numpy
 scores.
 """
 import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -23,7 +25,8 @@ import repro.service.sweep as JSW
 
 from repro_torch.core import CudaTransport, PluginRunner
 from repro_torch.service import (CompileCache, JobQueue, PipelineClient,
-                                 PipelineService, ServiceError,
+                                 PipelineService, PipelineWorker,
+                                 ServiceError,
                                  chain_signature, expand_sweep,
                                  parse_sweep_block, to_spec)
 from repro_torch.service import sweep as SW
@@ -311,3 +314,82 @@ def test_sweep_cancel_cancels_all_variants(idle_service):
     assert any(s["sweep_id"] == reply["sweep_id"]
                for s in client.sweeps())
     assert client.cancel_sweep(reply["sweep_id"])["cancelled"] == []
+
+
+# ====================================================== workers_remote
+def test_sweep_remote_gang_worker_bit_identical():
+    """The same acceptance path through the broker: one gang worker
+    (max_batch=8) leases the whole sweep and runs it through
+    ``run_plugin_batch`` — one build per plugin step in ITS cache, no
+    fallback — and the stacked result is bit-identical to solo runs."""
+    cache = CompileCache()
+    with _served(workers_remote=True, lease_ttl=15.0) as (svc, client):
+        reply = client.sweep(_chain(seed=5), _axis(), metric="sharpness")
+        w = PipelineWorker(
+            client.base_url, device="cpu", worker_id="gang-w", max_batch=8,
+            poll=0.01, heartbeat=1.0, compile_cache=cache)
+        w.register()
+        assert w.run_once() is True
+        snap = client.wait_sweep(reply["sweep_id"], timeout=WAIT_S)
+        assert snap["state"] == "done", snap
+        assert w.jobs_done == 7 and w.gang_fallbacks == 0
+        assert cache.stats()["misses"] == 4   # one build per plugin step
+        stacked = client.sweep_result(reply["sweep_id"])
+        assert stacked.shape == (7, 1, 20, 20)
+        for k, cutoff in enumerate(CUTOFFS):
+            r = PluginRunner(_with(_chain(seed=5), "sinogram_filter",
+                                   cutoff=cutoff), CudaTransport("cpu"))
+            np.testing.assert_array_equal(
+                stacked[k], r.transport.read(r.run()["recon"]))
+        assert snap["best_variant"] is not None
+        # every variant's process spans carry the gang's size
+        job0 = reply["job_ids"][0]
+        gangs = {s["attrs"].get("gang") for s in client.trace(job0)["spans"]
+                 if s.get("attrs", {}).get("phase") == "process"}
+        assert gangs == {7}
+
+
+def test_no_sweeps_worker_never_leases_variants():
+    """sweep-aware capability filtering: a worker registered with
+    sweeps=False leases plain jobs but never sweep variants."""
+    with _served(workers_remote=True, lease_ttl=5.0) as (svc, client):
+        client.register_worker(worker_id="plain-w", sweeps=False)
+        client.sweep(_chain(seed=1), _axis([0.5, 1.0]))
+        assert client.lease("plain-w", max_jobs=4) == []
+        jid = client.submit(_chain(seed=2))
+        assert [d["job_id"] for d in client.lease("plain-w")] == [jid]
+        # an unrestricted worker drains the sweep (as ONE gang lease)
+        client.register_worker(worker_id="full-w", max_batch=4)
+        got = client.lease("full-w", max_jobs=4)
+        assert len(got) == 2
+
+
+def test_broker_spool_gc_on_history_eviction():
+    """Uploaded .npy results die with their job: when max_history
+    evicts a terminal job, its result spool directory is deleted."""
+    with _served(workers_remote=True, lease_ttl=15.0,
+                 max_history=1) as (svc, client):
+        w = PipelineWorker(client.base_url, device="cpu", worker_id="w0",
+                           poll=0.01)
+        w.register()
+        ids = []
+        for s in range(3):
+            jid = client.submit(_chain(seed=s))
+            ids.append(jid)
+            assert w.run_once() is True
+            assert client.status(jid)["state"] == "done"
+        spool = lambda jid: os.path.join(          # noqa: E731
+            svc.broker.results_dir, jid.replace(os.sep, "_"))
+        assert os.path.exists(spool(ids[-1]))
+        # pruning runs at submit: this pushes the 2 oldest out
+        jid = client.submit(_chain(seed=9))
+        assert w.run_once() is True
+        assert not os.path.exists(spool(ids[0])), "spool leaked"
+        assert not os.path.exists(spool(ids[1])), "spool leaked"
+        # the freshest result is still retained and streamable
+        r = PluginRunner(_chain(seed=9), CudaTransport("cpu"))
+        np.testing.assert_array_equal(client.result(jid),
+                                      r.transport.read(r.run()["recon"]))
+        with pytest.raises(ServiceError) as ei:
+            client.result(ids[0])
+        assert ei.value.status == 404

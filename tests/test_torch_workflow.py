@@ -11,9 +11,16 @@ bit-identical to the upstream outputs they reference, which the
 scheduler hands over where the upstream left them (no copy), and the
 3-stage recon -> downsample -> quantify workflow agrees with the JAX
 package's stages within the chain's bound (rtol 1e-3, atol 1e-4).
+Broker mode (tests/test_workflow.py's broker cases): random DAGs run
+topologically through a pull-based worker, a SIGKILLed downstream node
+resumes without re-running its upstream, and the 3-stage workflow runs
+over two worker processes.
 """
 import contextlib
+import importlib
+import os
 import random
+import signal
 import time
 
 import numpy as np
@@ -26,13 +33,16 @@ import repro.service as JS
 from repro_torch.core.patterns import PROJECTION
 from repro_torch.core.plugin import BaseFilter
 from repro_torch.service import (JobQueue, PipelineClient, PipelineService,
-                                 ServiceError, WorkflowError,
-                                 WorkflowManager, from_spec, toposort)
+                                 PipelineWorker, ServiceError,
+                                 WorkflowError, WorkflowManager, from_spec,
+                                 toposort)
+from repro_torch.service.worker import spawn_local_workers
 from repro_torch.service import wire
 from repro_torch.service.job import JobState
 
 TOL = dict(rtol=1e-3, atol=1e-4)
 WAIT_S = 120
+TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
 class FailingPlugin(BaseFilter):
@@ -66,12 +76,20 @@ def _recon_spec(seed=0, n_det=16, n_angles=12, n_rows=2, fail=False):
     return {"version": 1, "plugins": plugins}
 
 
-def _passthrough_spec(parent, dataset):
-    return {"version": 1, "plugins": [
+def _passthrough_spec(parent, dataset, delay=0.0):
+    """A downstream chain re-saving its parent's output as ``vol``;
+    ``delay`` > 0 slows it (``slow_volume_identity``) so its worker can
+    be killed mid-node."""
+    plugins = [
         {"plugin": "upstream_loader",
          "params": {"data": {"from_job": parent, "dataset": dataset}},
-         "out_datasets": ["vol"]},
-        {"plugin": "hdf5_saver", "in_datasets": ["vol"]}]}
+         "out_datasets": ["vol"]}]
+    if delay:
+        plugins.append({"plugin": "slow_volume_identity",
+                        "params": {"delay": delay},
+                        "in_datasets": ["vol"], "out_datasets": ["vol"]})
+    plugins.append({"plugin": "hdf5_saver", "in_datasets": ["vol"]})
+    return {"version": 1, "plugins": plugins}
 
 
 def _downsample_spec(parent, dataset="recon", factor=2):
@@ -383,6 +401,38 @@ def test_random_dags_run_topologically_scheduler(edges):
                     _read(svc, "wf-prop", ups[0], out_name[ups[0]]))
 
 
+@_property(max_examples=4, max_nodes=6)
+def test_random_dags_run_topologically_broker(edges):
+    """The same topological-order guarantee when dependency-aware
+    leasing hands nodes to a pull-based worker, with upstream outputs
+    fetched over the wire; results are the broker's ``.npy`` spool."""
+    env, out_name = _dag_envelope(edges, "wf-prop-b")
+    with _service(workers_remote=True, lease_ttl=10.0,
+                  sweep_interval=0.2) as svc:
+        host, port = svc.serve(port=0)
+        group = svc.submit_workflow(env)
+        w = PipelineWorker(f"http://{host}:{port}", device="cpu",
+                           worker_id="pw", poll=0.01)
+        w.register()
+        deadline = time.time() + WAIT_S
+        while not group.all_terminal():
+            assert time.time() < deadline, group.snapshot()
+            if not w.run_once():
+                time.sleep(0.01)
+        snap = group.snapshot()
+        assert snap["state"] == "done", snap
+        jobs = snap["node_jobs"]
+        for node, ups in snap["edges"].items():
+            for up in ups:
+                assert jobs[up]["finished_at"] <= jobs[node]["started_at"]
+            if ups:
+                got = svc.result_file(f"wf-prop-b/{node}", "vol")
+                want = svc.result_file(f"wf-prop-b/{ups[0]}",
+                                       out_name[ups[0]])
+                np.testing.assert_array_equal(np.load(got[1]),
+                                              np.load(want[1]))
+
+
 @_property(max_examples=20, max_nodes=8)
 def test_random_broken_dags_rejected_atomically(edges):
     names = list(edges)
@@ -493,3 +543,149 @@ def test_three_stage_workflow_over_http():
     np.testing.assert_allclose(got["recon"], want_recon, **TOL)
     np.testing.assert_allclose(got["downsample"], want_small, **TOL)
     np.testing.assert_allclose(got["quantify"], want_stats, **TOL)
+
+
+# ============================================================ broker mode
+@pytest.fixture
+def slow_plugins(monkeypatch):
+    """The test plugins (``torch_slow_plugins``) in a copy of the wire
+    registry, restored afterwards."""
+    monkeypatch.setattr(wire, "_REGISTRY", dict(wire._REGISTRY))
+    for cls in importlib.import_module("torch_slow_plugins").PLUGINS:
+        wire.register_plugin(cls)
+
+
+def _reap(workers):
+    for p in workers:
+        if p.poll() is None:
+            p.kill()
+    for p in workers:
+        p.wait(timeout=10)
+
+
+def test_sigkill_mid_downstream_does_not_rerun_upstream(tmp_path,
+                                                        slow_plugins):
+    """SIGKILL the worker running a DOWNSTREAM node: the lease expires,
+    the node requeues, and the resumed attempt consumes the upstream
+    output already materialised in the result store — the upstream is
+    NOT re-executed (one ``attempt`` span on it, its ``attempt`` counter
+    stays 1) and the final volume is bit-identical to the same stages
+    submitted sequentially by hand."""
+    with _service(workers_remote=True, lease_ttl=1.5,
+                  sweep_interval=0.1) as svc:
+        host, port = svc.serve(port=0)
+        url = f"http://{host}:{port}"
+        client = PipelineClient(url, timeout=60.0)
+        workers = spawn_local_workers(
+            url, 2, transport="cuda", device="cpu",
+            checkpoint_dir=str(tmp_path / "ckpts"), poll=0.05,
+            heartbeat=0.3, imports=("torch_slow_plugins",),
+            worker_ids=["w0", "w1"], pythonpath_extra=(TESTS_DIR,))
+        by_id = dict(zip(["w0", "w1"], workers))
+        try:
+            reply = client.workflow({
+                "up": {"process_list": _recon_spec(seed=11, n_rows=4)},
+                "down": {"process_list":
+                         _passthrough_spec("up", "recon", delay=2.0)},
+            }, workflow_id="wf-kill")
+            assert reply["nodes"] == ["up", "down"]
+            deadline = time.time() + WAIT_S
+            while True:
+                snap = client.workflow_status("wf-kill")
+                down = snap["node_jobs"]["down"]
+                if down["state"] == "running" and down["worker_id"]:
+                    break
+                assert down["state"] not in ("done", "failed"), snap
+                assert time.time() < deadline, snap
+                time.sleep(0.05)
+            assert snap["node_jobs"]["up"]["state"] == "done"
+            victim = down["worker_id"]
+            time.sleep(0.5)                      # into the slow step
+            os.kill(by_id[victim].pid, signal.SIGKILL)
+
+            snap = client.wait_workflow("wf-kill", timeout=WAIT_S)
+            assert snap["state"] == "done", snap
+            up, down = snap["node_jobs"]["up"], snap["node_jobs"]["down"]
+            assert down["attempt"] >= 2, down    # requeued after expiry
+            assert down["worker_id"] != victim, down
+            assert up["attempt"] == 1, up        # upstream NOT re-run
+            tr = client.workflow_trace("wf-kill")
+            names_up = [s["name"] for s in tr["nodes"]["up"]["spans"]]
+            names_down = [s["name"] for s in tr["nodes"]["down"]["spans"]]
+            assert names_up.count("attempt") == 1
+            assert names_down.count("attempt") >= 1
+            assert "checkpoint.restore" in names_down
+            assert "upstream.fetch" in names_down
+            wf_vol = client.result("wf-kill/down", "vol")
+            jid = client.submit(_recon_spec(seed=11, n_rows=4),
+                                job_id="seq-up")
+            assert client.wait(jid, timeout=WAIT_S)["state"] == "done"
+            jid2 = client.submit(_passthrough_spec("seq-up", "recon"),
+                                 job_id="seq-down")
+            assert client.wait(jid2, timeout=WAIT_S)["state"] == "done"
+            np.testing.assert_array_equal(wf_vol,
+                                          client.result("seq-down", "vol"))
+            assert client.stats()["leases_expired"] >= 1
+        finally:
+            _reap(workers)
+
+
+def test_three_stage_workflow_broker_acceptance():
+    """recon -> downsample -> quantify as ONE ``POST /workflows`` in
+    broker mode with two worker processes: downstream inputs resolve
+    from upstream outputs over the wire, the final stats are
+    bit-identical to the same stages submitted sequentially by hand, the
+    recon within the chain's bound of the JAX package's, and
+    ``GET /workflows/{id}`` + ``/trace`` report per-node status on one
+    linked timeline."""
+    with _service(workers_remote=True, lease_ttl=10.0,
+                  sweep_interval=0.2) as svc:
+        host, port = svc.serve(port=0)
+        url = f"http://{host}:{port}"
+        client = PipelineClient(url, timeout=60.0)
+        workers = spawn_local_workers(url, 2, transport="cuda",
+                                      device="cpu", poll=0.05,
+                                      worker_ids=["w0", "w1"])
+        try:
+            reply = client.workflow({
+                "recon": {"process_list": _recon_spec(seed=3)},
+                "downsample": {"process_list": _downsample_spec("recon")},
+                "quantify": {"process_list": _quantify_spec("downsample"),
+                             "after": ["downsample"]},
+            }, workflow_id="wf-accept")
+            assert reply["n_nodes"] == 3
+            snap = client.wait_workflow("wf-accept", timeout=WAIT_S)
+            assert snap["state"] == "done", snap
+            assert snap["counts"] == {"done": 3}
+            assert snap["edges"]["downsample"] == ["recon"]
+            assert snap["edges"]["quantify"] == ["downsample"]
+            j1 = client.submit(_recon_spec(seed=3), job_id="s-recon")
+            assert client.wait(j1, timeout=WAIT_S)["state"] == "done"
+            j2 = client.submit(_downsample_spec("s-recon"), job_id="s-down")
+            assert client.wait(j2, timeout=WAIT_S)["state"] == "done"
+            j3 = client.submit(_quantify_spec("s-down"), job_id="s-quant")
+            assert client.wait(j3, timeout=WAIT_S)["state"] == "done"
+            stats = client.result("wf-accept/quantify", "stats")
+            np.testing.assert_array_equal(
+                stats, client.result("s-quant", "stats"))
+            np.testing.assert_array_equal(
+                client.result("wf-accept/downsample", "small"),
+                client.result("s-down", "small"))
+            # the first stage against the JAX package's on the same spec
+            jr = R.PluginRunner(JS.from_spec(_recon_spec(seed=3)),
+                                R.InMemoryTransport())
+            np.testing.assert_allclose(
+                client.result("wf-accept/recon", "recon"),
+                np.asarray(jr.transport.read(jr.run()["recon"])), **TOL)
+            tr = client.workflow_trace("wf-accept")
+            assert sorted(tr["nodes"]) == ["downsample", "quantify",
+                                           "recon"]
+            for node in ("downsample", "quantify"):
+                names = [s["name"] for s in tr["nodes"][node]["spans"]]
+                assert "upstream.fetch" in names, (node, names)
+            assert all(snap["node_jobs"][n]["worker_id"] in ("w0", "w1")
+                       for n in snap["node_jobs"])
+            out = client.cancel_workflow("wf-accept")
+            assert out["cancelled"] == []
+        finally:
+            _reap(workers)
