@@ -24,8 +24,15 @@ Phases, each fatal on failure:
    rtol 2**-7, atol 1e-5), and over an fp32 sweep (2e-5: causal or
    not, groups 1, 4 and 48, D 64 and 128, ragged lengths); a line gives
    the fp32 kernel's time at the serving shape and the bf16 kernel's
-   achieved TFLOP/s.  Backprojection is also held, on four full image
-   rows, against ``backproject_tiled_ref``, which repeats its arithmetic
+   achieved TFLOP/s.  At every prefill attention shape of phase 7's
+   traffic (``flash_family_shapes``: qwen3-moe, llava-next and zamba2's
+   causal prefills; whisper-small's non-causal encoder over 1500 frames,
+   causal decoder and cross-attention of 4 tokens against 1500 frames)
+   the kernel is held against ``mha_ref`` in bf16 and fp32 and timed
+   beside its bound, the plain version and
+   ``scaled_dot_product_attention``.  Backprojection is
+   also held, on four full image rows, against ``backproject_tiled_ref``,
+   which repeats its arithmetic
    (rtol 1e-5, atol 1e-6); a line gives its work (positions once per
    (pixel, angle), lerps per slice), its bound and its achieved G
    updates/s; another gives its time at the
@@ -113,7 +120,26 @@ Phases, each fatal on failure:
    against the plain path in fp32 on the same weights); a line gives
    the distance that check reads with two planted faults in the
    prefill's attention (the last V tile zero-filled; P rounded to bf16
-   in the kernel's tiled arithmetic), against its limit.
+   in the kernel's tiled arithmetic), against its limit;
+7. the other families at full width (bf16, random weights from seed 0,
+   ``use_flash``), each model freed before the next, as their users
+   call them: qwen3-moe-235b-a22b (8 of 94 layers) through
+   ``ContinuousBatcher``, 4 requests x 1024 prompt tokens, 32 new, 4
+   slots; llava-next-34b (all 60 layers) through ``greedy_generate``,
+   batch 2 of 2048 patch embeddings + 64 tokens, 32 new; zamba2-1.2b
+   through ``ContinuousBatcher``, 4 x 2048 tokens, 64 new, 4 slots;
+   xlstm-1.3b through ``ContinuousBatcher``, 4 x 512 tokens, 32 new, 2
+   slots; whisper-small through ``greedy_generate``, batch 4 of 1500
+   frames + 4 tokens, 64 new.  The flash kernel's count is set to 0
+   just before each run and must read one prefill's launches per prompt
+   (32, 60, 24, 0, 36); every logit finite, every token in the
+   vocabulary; then a few decode steps of a fresh cache under
+   ``torch.profiler`` (device busy time against the wall, top kernels);
+8. family parity: the six smoke configurations of those families
+   (fp32, llama4-maverick's dense/MoE interleave and shared expert
+   included) through ``greedy_generate`` with the kernel on the card and
+   with the plain versions on the CPU, on the same weights: identical
+   tokens, prefill logits within 2e-4.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (the
 correction row also gives the gang launch, ``batched_*``, and the
@@ -121,7 +147,9 @@ spectrum-scale row the per-member launch of a 4-variant sweep); the
 last line is ``{"ok": true, "device": {...}}``.  Phases 3a-3e print one
 ``{"service_gang": ...}``, ``{"streaming": ...}``,
 ``{"stream_resume": ...}``, ``{"http_service": ...}`` and
-``{"remote_workers": ...}`` line each.
+``{"remote_workers": ...}`` line each; phase 2's family shapes one
+``{"flash_attention_families": [...]}`` line, phases 7 and 8 one
+``{"families": ...}`` and one ``{"family_parity": ...}`` line.
 Every bound is computed from the kernels' own ``cost()`` counts, the
 numbers the service's process spans carry.  Without a CUDA device,
 or without the repository's ``src/repro_torch`` beside this file, it
@@ -135,6 +163,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import shutil
 import statistics
@@ -215,6 +244,26 @@ HTTP_WAIT_S = 600
 #: gang a worker leases, and seconds the phase waits for any one thing
 REMOTE = {"n_rows": 2, "lease_ttl": 5.0, "delay": 3.0, "max_batch": 4}
 REMOTE_WAIT_S = 600
+#: phase 7: the other families at full width (bf16, random weights from
+#: seed 0) and their traffic; ``n_layers`` cuts the depth where all the
+#: layers would not fit one 80 GB card (qwen3-moe: 94 layers ~470 GB)
+FAMILIES = {
+    "qwen3-moe-235b-a22b": {"n_layers": 8, "batcher": True, "requests": 4,
+                            "prompt_len": 1024, "max_new": 32, "slots": 4,
+                            "max_len": 2048},
+    "llava-next-34b": {"batcher": False, "batch": 2, "patches": 2048,
+                       "prompt_len": 64, "max_new": 32, "max_len": 2176},
+    "zamba2-1.2b": {"batcher": True, "requests": 4, "prompt_len": 2048,
+                    "max_new": 64, "slots": 4, "max_len": 4096},
+    "xlstm-1.3b": {"batcher": True, "requests": 4, "prompt_len": 512,
+                   "max_new": 32, "slots": 2, "max_len": 1024},
+    "whisper-small": {"batcher": False, "batch": 4, "frames": 1500,
+                      "prompt_len": 4, "max_new": 64, "max_len": 448},
+}
+#: phase 8: the families' smoke configurations, card against CPU
+FAMILY_PARITY = ["qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+                 "llava-next-34b", "zamba2-1.2b", "xlstm-1.3b",
+                 "whisper-small"]
 
 
 def fail(msg: str) -> None:
@@ -794,6 +843,294 @@ def jax_layout_params(cfg, rng) -> dict:
     return tree
 
 
+def flash_per_prefill(cfg) -> int:
+    """Flash launches of one prefill: one per attention layer; the shared
+    block's applications (Zamba2); the encoder's layers and the decoder's
+    self- and cross-attention layers (Whisper); none for xLSTM."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // (cfg.attn_every or cfg.n_layers)
+    if cfg.family == "encdec":
+        return (cfg.n_enc_layers or cfg.n_layers) + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def flash_family_shapes() -> dict:
+    """Each prefill attention of ``FAMILIES``' traffic, as phase 7 gives it
+    to the kernel: name -> (B, Hq, Hkv, Sq, Sk, D, causal).  A batcher
+    prefills one request at a time; llava-next's prompt is its patches
+    and its tokens; whisper-small's encoder attends over its frames, its
+    decoder over its tokens (causal) and across to the frames."""
+    from repro_torch.configs import get_config
+
+    shapes = {}
+    for arch, run in FAMILIES.items():
+        cfg = get_config(arch)
+        if cfg.family == "ssm":
+            continue
+        b = 1 if run["batcher"] else run["batch"]
+        heads = (b, cfg.n_heads, cfg.n_kv_heads)
+        s = run["prompt_len"] + run.get("patches", 0)
+        name = arch
+        if cfg.family == "encdec":
+            t = run["frames"]
+            shapes[f"{arch} encoder"] = (*heads, t, t, cfg.hd, False)
+            shapes[f"{arch} cross"] = (*heads, s, t, cfg.hd, False)
+            name = f"{arch} decoder"
+        shapes[name] = (*heads, s, s, cfg.hd, True)
+    return shapes
+
+
+def flash_family_rows(dev, compare) -> list:
+    """Phase 2 at ``flash_family_shapes()``: the kernel against ``mha_ref``
+    in bf16 (rtol 1e-2, atol 1e-3) and fp32 (2e-5), its time beside its
+    bound from ``cost()``, the plain version's and
+    ``scaled_dot_product_attention``'s."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import (
+        cost, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for name, (b_, hq, hkv, sq, sk, d_, causal) in \
+            flash_family_shapes().items():
+        q = torch.randn((b_, hq, sq, d_), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        k, v = (torch.randn((b_, hkv, sk, d_), generator=gen, device=dev
+                            ).to(torch.bfloat16) for _ in range(2))
+        err = compare(f"flash attention (bf16, {name})",
+                      flash_attention_cuda(q, k, v, causal=causal),
+                      mha_ref(q, k, v, causal=causal), *FLASH_BF16_TOL)
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        err32 = compare(f"flash attention (fp32, {name})",
+                        flash_attention_cuda(q32, k32, v32, causal=causal),
+                        mha_ref(q32, k32, v32, causal=causal), 2e-5, 2e-5)
+        b, by = work_bound(cost(b_, hq, hkv, sq, d_, q.element_size(),
+                                causal=causal, sk=sk), PEAK_BF16_FLOPS)
+        rows.append({
+            "shape": name, "b_hq_hkv_sq_sk_d": [b_, hq, hkv, sq, sk, d_],
+            "causal": causal, "max_abs_err": err, "fp32_max_abs_err": err32,
+            "ms": cuda_ms(lambda: flash_attention_cuda(q, k, v,
+                                                       causal=causal), 20),
+            "plain_ms": cuda_ms(lambda: mha_ref(q, k, v, causal=causal), 5),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": cuda_ms(lambda: sdpa(
+                q, k, v, is_causal=causal, enable_gqa=True), 20),
+            "fp32_ms": cuda_ms(lambda: flash_attention_cuda(
+                q32, k32, v32, causal=causal), 10)})
+        del q, k, v, q32, k32, v32
+    return rows
+
+
+def families_phase(dev) -> dict:
+    """Phase 7: each family of ``FAMILIES`` at full width on the card, as
+    its users call it (``ContinuousBatcher`` or ``greedy_generate``), each
+    model freed before the next; fails unless the flash launches are
+    exactly one prefill's per prompt, every logit is finite and every
+    token lies in the vocabulary.  Then ``PROFILED_STEPS`` decode steps
+    of a fresh cache under ``torch.profiler``: the device's busy time
+    per step against the step's wall, and the kernels that take most."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.models import build_model
+    from repro_torch.training import (ContinuousBatcher, Request,
+                                      greedy_generate, make_serve_step)
+
+    report = {}
+    for arch, run in FAMILIES.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, use_flash=True, n_layers=run.get(
+            "n_layers", full.n_layers))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        model = build_model(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in params.parameters())
+        nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+        prefill_ms, decode_ms = [], []
+
+        def timed(fn, times):
+            def call(*args):
+                torch.cuda.synchronize(dev)
+                t = time.perf_counter()
+                logits, cache = fn(*args)
+                torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t) * 1e3)
+                nonfinite.add_((~torch.isfinite(logits)).sum())
+                return logits, cache
+            return call
+
+        served = dataclasses.replace(
+            model, prefill=timed(model.prefill, prefill_ms),
+            decode_step=timed(model.decode_step, decode_ms))
+        rng = np.random.default_rng(0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if run["batcher"]:
+            runner = ContinuousBatcher(served, params, slots=run["slots"],
+                                       max_len=run["max_len"])
+            for i in range(run["requests"]):
+                runner.submit(Request(rid=i, prompt=rng.integers(
+                    0, cfg.vocab, (run["prompt_len"],)).astype(np.int32),
+                    max_new=run["max_new"]))
+            prompts = run["requests"]
+        else:
+            b = run["batch"]
+            batch = {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab, (b, run["prompt_len"])).astype(np.int32)
+            ).to(dev)}
+            for name in ("patches", "frames"):
+                if name in run:
+                    batch[name] = torch.randn(
+                        (b, run[name], cfg.d_model), generator=gen,
+                        device=dev).to(cfg.dtype)
+            prompts = 1
+        flash_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        if run["batcher"]:
+            tokens = [r.generated for r in sorted(runner.run(),
+                                                  key=lambda r: r.rid)]
+        else:
+            tokens = greedy_generate(
+                served, params, batch, max_new=run["max_new"],
+                max_len=run["max_len"]).tolist()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = flash_attention_cuda.launches
+        want = prompts * flash_per_prefill(cfg)
+        n_tokens = sum(len(t) for t in tokens)
+        report[arch] = {
+            "width": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                      "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
+                      "d_ff": cfg.d_ff, "vocab": cfg.vocab},
+            "depth": cfg.n_layers, "depth_full": full.n_layers,
+            "traffic": {k: v for k, v in run.items() if k != "n_layers"},
+            "weights_bytes": weight_bytes, "init_s": init_s,
+            "prefill_ms": prefill_ms,
+            "prefill_ms_median": statistics.median(prefill_ms),
+            "decode_steps": len(decode_ms),
+            "decode_step_ms_median": statistics.median(decode_ms),
+            "wall_s": wall, "tokens": n_tokens,
+            "tokens_per_s": n_tokens / wall,
+            # the model's own peak: what it added to what was resident
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) - resident,
+            "resident_bytes": resident,
+            "flash_launches": launches, "flash_launches_expected": want}
+        if launches != want:
+            fail(f"{arch}: the flash kernel launched {launches} times, "
+                 f"expected {want}")
+        if len(tokens) != (run["requests"] if run["batcher"]
+                           else run["batch"]) or any(
+                len(t) != run["max_new"] or not all(
+                    0 <= x < cfg.vocab for x in t) for t in tokens):
+            fail(f"{arch}: {[len(t) for t in tokens]} tokens, some "
+                 f"outside [0, {cfg.vocab})")
+        if int(nonfinite):
+            fail(f"{arch}: {int(nonfinite)} non-finite logits")
+        # where a decode step's time goes, on a fresh cache of the run's
+        # batch (the recurrent families' steps cost the same at any
+        # position; an attention step attends over all max_len slots)
+        step = make_serve_step(model)
+        slots = run["slots"] if run["batcher"] else run["batch"]
+        cache = model.init_cache(slots, run["max_len"])
+        tok = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+        tok, cache = step(params, tok, cache)
+        torch.cuda.synchronize(dev)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILED_STEPS):
+                tok, cache = step(params, tok, cache)
+            torch.cuda.synchronize(dev)
+            step_wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+        on_card = sorted((e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)
+        report[arch]["decode_profile"] = {
+            "steps": PROFILED_STEPS, "wall_ms_per_step": step_wall_ms,
+            "device_busy_ms_per_step": sum(
+                e.self_device_time_total for e in on_card) / 1e3
+            / PROFILED_STEPS,
+            "kernels_per_step": sum(e.count for e in on_card)
+            / PROFILED_STEPS,
+            "top_kernels_ms_per_step": [
+                [e.key[:80], e.self_device_time_total / 1e3 / PROFILED_STEPS]
+                for e in on_card[:4]]}
+        del model, served, params, tokens, cache, prof
+        if run["batcher"]:
+            del runner
+        else:
+            del batch
+        torch.cuda.empty_cache()
+    return report
+
+
+def family_parity_phase(dev, compare) -> dict:
+    """Phase 8: each smoke configuration of ``FAMILY_PARITY`` (fp32) with
+    the kernel on the card against the plain versions on the CPU, on the
+    same weights: identical greedy tokens, prefill logits within 2e-4,
+    one prefill's flash launches on the card and none on the CPU."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_config, smoke_batch
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.models import build_model
+    from repro_torch.training import greedy_generate
+
+    report = {}
+    for arch in FAMILY_PARITY:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  use_flash=True)
+        batch = smoke_batch(cfg, batch=2, seq=16, seed=3)
+        batch.pop("labels")
+        weights = build_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(0))
+        runs = {}
+        for device in (dev, torch.device("cpu")):
+            model = build_model(cfg, device)
+            params = copy.deepcopy(weights).to(device)
+            logits = []
+
+            def prefill(params, batch, max_len, model=model, logits=logits):
+                out, cache = model.prefill(params, batch, max_len)
+                logits.append(out.cpu())
+                return out, cache
+
+            flash_attention_cuda.launches = 0
+            tokens = greedy_generate(
+                dataclasses.replace(model, prefill=prefill), params, batch,
+                max_new=8, max_len=32)
+            runs[device.type] = (tokens, logits[0],
+                                 flash_attention_cuda.launches)
+        (card_toks, card_logits, n_card), (cpu_toks, cpu_logits, n_cpu) = \
+            runs["cuda"], runs["cpu"]
+        if (n_card, n_cpu) != (flash_per_prefill(cfg), 0):
+            fail(f"family parity {arch}: {n_card} kernel launches on the "
+                 f"card, {n_cpu} on the CPU")
+        if not np.array_equal(card_toks, cpu_toks):
+            fail(f"family parity {arch}: tokens differ, card {card_toks} "
+                 f"cpu {cpu_toks}")
+        report[arch] = {
+            "max_abs_err": compare(f"family parity {arch}: smoke prefill "
+                                   f"logits, card vs CPU", card_logits,
+                                   cpu_logits, 2e-4, 2e-4),
+            "flash_launches": n_card, "tokens_identical": True}
+    return report
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--bp-slices", action="store_true",
@@ -1023,7 +1360,7 @@ def main() -> None:
         "batched_bound_ms": work_bound(sf_cost(*spec.shape, n_var))[0],
         "batched_library_ms": statistics.median(
             rounds["batched_library"])})
-    del sino, spec, got
+    del sino, spec, got, part
 
     geom = ParallelGeometry(n_ang, n_det, n_rows)
     sino = torch.randn((n_rows, n_ang, n_det), generator=gen, device=dev)
@@ -1105,6 +1442,8 @@ def main() -> None:
         "bf16_max_abs_err_vs_tiled": tiled_err,
         "fp32_ms": f32_ms, "fp32_tflops": flash_flops / f32_ms / 1e9}}))
     del q, k, v, q32, k32, v32
+    print(json.dumps({"flash_attention_families": flash_family_rows(
+        dev, compare)}))
     torch.cuda.empty_cache()
 
     # -- 3. the tomography path --------------------------------------------
@@ -1355,7 +1694,7 @@ def main() -> None:
             "checkpoint_cleared": store.load(second.job_id) is None}}))
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    del runs, first, second, job, sched, recon3, frames, scan
+    del runs, first, second, job, sched, queue, recon3, frames, scan
     torch.cuda.empty_cache()
 
     # -- 3d. the HTTP service on the card: a sweep, a workflow, telemetry
@@ -1588,6 +1927,23 @@ def main() -> None:
             k: {"max_abs_err": e, "caught": e > rounding}
             for k, e in planted.items()}}}))
     del params, kernel_bf16, plain_bf16, plain_fp32, flash_model, got
+    torch.cuda.empty_cache()
+
+    # -- 7. the other families at full width --------------------------------
+    # what earlier phases left on the card goes first
+    del recon
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    families = families_phase(dev)
+    print(json.dumps({"families": families,
+                      "phase_s": time.perf_counter() - t0}), flush=True)
+
+    # -- 8. family parity: kernels on the card vs plain versions on the CPU
+    t0 = time.perf_counter()
+    parity = family_parity_phase(dev, compare)
+    print(json.dumps({"family_parity": parity,
+                      "phase_s": time.perf_counter() - t0}), flush=True)
 
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

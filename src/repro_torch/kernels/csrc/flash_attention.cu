@@ -1,11 +1,16 @@
 // FlashAttention-2 forward (online softmax) with GQA, causal or not.
 //
 // Replaces the TPU kernel flash_attention_pallas (src/repro/kernels/
-// flash_attention/kernel.py, body _flash_kernel).  For q (B, Hq, S, D)
-// and k, v (B, Hkv, S, D), contiguous, float32 or bfloat16:
+// flash_attention/kernel.py, body _flash_kernel).  For q (B, Hq, Sq, D)
+// and k, v (B, Hkv, Sk, D), contiguous, float32 or bfloat16:
 //
 //     o[b, h, r] = sum_c softmax_c(q[b, h, r] . k[b, h / G, c] / sqrt(D))
 //                  * v[b, h / G, c],   G = Hq / Hkv,  causal: c <= r
+//
+// Causal attention takes Sq = Sk (the caller checks); a non-causal one
+// (Whisper's cross-attention: decoder tokens against encoder frames)
+// sweeps its own Sk keys.  The reference's Pallas kernel sizes both
+// grids by q's length, so there the keys past Sq are never read.
 //
 // Masked scores are -1e30 (never -inf, so exp(m_prev - m_new) never sees
 // inf - inf); m, l and the accumulator are fp32; the output is
@@ -15,8 +20,8 @@
 // in registers; GQA reads the kv head its q head maps to, so grouped
 // heads never repeat in memory; a causal sweep stops at the diagonal
 // tile and blocks are issued longest sweep first; ragged lengths are
-// masked (rows and columns >= S load as zero, columns >= S score -1e30,
-// rows >= S are not written), so any S is taken.
+// masked (q rows >= Sq and key rows >= Sk load as zero, columns >= Sk
+// score -1e30, rows >= Sq are not written), so any Sq and Sk are taken.
 //
 // Bound on the card: operations.  At the serving shape (B 1, Hq 32,
 // S 2048, D 128, causal, bf16) the inputs and output are 42 MB against
@@ -36,10 +41,10 @@
 // outputs by more than the card check's atol of 1e-3.  l is the fp32
 // row sum of the unsplit p; the row max and sum reduce over the 4 lanes
 // that share a row.  K and V tiles arrive by cp.async (16 bytes a
-// thread, rows >= S zero-filled) into a ring of two stages, so the next
-// tile's copy is in flight while the current one computes; tiles are
-// stored with their 16-byte chunks XOR-swizzled by row, so each 8-row
-// ldmatrix phase touches all 32 banks once.  Shared memory at D 128:
+// thread, rows past the end zero-filled) into a ring of two stages, so
+// the next tile's copy is in flight while the current one computes;
+// tiles are stored with their 16-byte chunks XOR-swizzled by row, so
+// each 8-row ldmatrix phase touches all 32 banks once.  Shared memory at D 128:
 // 16 KB of Q + 2 x 32 KB of K and V = 80 KB, two blocks per SM.
 //
 // float32 (flash_fwd_f32_kernel, tests and the fp32 parity runs): the
@@ -94,7 +99,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int hq, int hkv, int s, bool causal, float scale) {
+                     int hq, int hkv, int sq, int sk, bool causal,
+                     float scale) {
     constexpr int DV = D / 4;             // 4-wide chunks of a row
     constexpr int DN = D / TX;            // output columns per thread
     constexpr int VEC = D >= 64 ? 4 : 1;  // consecutive columns per read
@@ -113,8 +119,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int b = blockIdx.z;
     const int kvh = h / (hq / hkv);
     const int q0 = tile * BQ;
-    const long long rows_q = static_cast<long long>(b * hq + h) * s;
-    const long long rows_kv = static_cast<long long>(b * hkv + kvh) * s;
+    const long long rows_q = static_cast<long long>(b * hq + h) * sq;
+    const long long rows_kv = static_cast<long long>(b * hkv + kvh) * sk;
     const float* qp = q + rows_q * D;
     const float* kp = k + rows_kv * D;
     const float* vp = v + rows_kv * D;
@@ -126,7 +132,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int r = e % BQ;
         const int c = (e / BQ) * 4;
         float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (q0 + r < s) load4(qp + static_cast<long long>(q0 + r) * D + c, x);
+        if (q0 + r < sq) load4(qp + static_cast<long long>(q0 + r) * D + c, x);
 #pragma unroll
         for (int i = 0; i < 4; ++i) qt[(c + i) * BQ + r] = x[i] * scale;
     }
@@ -140,7 +146,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int n = 0; n < DN; ++n) acc[i][n] = 0.0f;
     }
 
-    const int n_k = causal ? tile + 1 : (s + BK - 1) / BK;
+    const int n_k = causal ? tile + 1 : (sk + BK - 1) / BK;
     for (int j = 0; j < n_k; ++j) {
         const int k0 = j * BK;
         __syncthreads();                  // the previous pass is done
@@ -148,7 +154,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const int r = e % BK;
             const int c = (e / BK) * 4;
             float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            if (k0 + r < s)
+            if (k0 + r < sk)
                 load4(kp + static_cast<long long>(k0 + r) * D + c, x);
 #pragma unroll
             for (int i = 0; i < 4; ++i) kt[(c + i) * BK + r] = x[i];
@@ -157,7 +163,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const int r = e / DV;
             const int c = (e % DV) * 4;
             float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            if (k0 + r < s)
+            if (k0 + r < sk)
                 load4(vp + static_cast<long long>(k0 + r) * D + c, x);
             *reinterpret_cast<float4*>(vs + r * D + c) =
                 make_float4(x[0], x[1], x[2], x[3]);
@@ -190,7 +196,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
             for (int n = 0; n < CN; ++n) {
                 const int col = k0 + tx * CN + n;
-                if (col >= s || (causal && col > row)) sc[i][n] = NEG_INF;
+                if (col >= sk || (causal && col > row)) sc[i][n] = NEG_INF;
             }
         }
 
@@ -266,7 +272,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
         const int row = q0 + ty * RM + i;
-        if (row >= s) continue;
+        if (row >= sq) continue;
         const float den = fmaxf(l[i], 1e-30f);
         float* orow = op + static_cast<long long>(row) * D;
 #pragma unroll
@@ -279,18 +285,18 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int b, int hq, int hkv, int s, int causal, float scale,
-                       cudaStream_t stream) {
+                       int b, int hq, int hkv, int sq, int sk, int causal,
+                       float scale, cudaStream_t stream) {
     const int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
     const cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (err != cudaSuccess) return err;
-    const dim3 grid(hq, (s + BQ - 1) / BQ, b);
+    const dim3 grid(hq, (sq + BQ - 1) / BQ, b);
     flash_fwd_f32_kernel<D><<<grid, THREADS, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, s,
-        causal != 0, scale);
+        static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, sq,
+        sk, causal != 0, scale);
     return cudaGetLastError();
 }
 
@@ -376,17 +382,17 @@ __device__ __forceinline__ void split(float a, float b, unsigned& hi,
     lo = bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
 }
 
-// rows [r0, r0 + 64) of a (S, D) head into a swizzled tile; rows >= s
+// rows [r0, r0 + 64) of an (n, D) head into a swizzled tile; rows >= n
 // are zero-filled (their source address is row 0, never read)
 template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int r0,
-                                          int s) {
+                                          int n) {
     constexpr int CPR = D / 8;
     for (int e = threadIdx.x; e < BK * CPR; e += TC_THREADS) {
         const int r = e / CPR;
         const int c = (e % CPR) * 8;
-        const bool ok = r0 + r < s;
+        const bool ok = r0 + r < n;
         cp_async16(dst + swz<D>(r, c),
                    src + static_cast<long long>(ok ? r0 + r : 0) * D + c, ok);
     }
@@ -397,8 +403,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o, int hq, int hkv, int s,
-                      bool causal, float scale) {
+                      __nv_bfloat16* __restrict__ o, int hq, int hkv,
+                      int sq, int sk, bool causal, float scale) {
     static_assert(BQ == BK, "a stage and the q tile share one layout");
     constexpr int KD = D / 16;           // k16 steps of Q K^T
     constexpr int ND = D / 8;            // n8 tiles of the output
@@ -418,22 +424,22 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int b = blockIdx.z;
     const int kvh = h / (hq / hkv);
     const int q0 = tile * BQ;
-    const long long rows_q = static_cast<long long>(b * hq + h) * s;
-    const long long rows_kv = static_cast<long long>(b * hkv + kvh) * s;
+    const long long rows_q = static_cast<long long>(b * hq + h) * sq;
+    const long long rows_kv = static_cast<long long>(b * hkv + kvh) * sk;
     const __nv_bfloat16* qp = q + rows_q * D;
     const __nv_bfloat16* kp = k + rows_kv * D;
     const __nv_bfloat16* vp = v + rows_kv * D;
     __nv_bfloat16* op = o + rows_q * D;
 
     // group 0: Q and the first K/V tile; group 1: the second (or none)
-    const int n_k = causal ? tile + 1 : (s + BK - 1) / BK;
-    load_tile<D>(qs, qp, q0, s);
-    load_tile<D>(ks, kp, 0, s);
-    load_tile<D>(vs, vp, 0, s);
+    const int n_k = causal ? tile + 1 : (sk + BK - 1) / BK;
+    load_tile<D>(qs, qp, q0, sq);
+    load_tile<D>(ks, kp, 0, sk);
+    load_tile<D>(vs, vp, 0, sk);
     cp_async_commit();
     if (n_k > 1) {
-        load_tile<D>(ks + TILE, kp, BK, s);
-        load_tile<D>(vs + TILE, vp, BK, s);
+        load_tile<D>(ks + TILE, kp, BK, sk);
+        load_tile<D>(vs + TILE, vp, BK, sk);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -484,7 +490,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
         // scale on the fp32 scores; mask the diagonal and ragged tiles
         const int k0 = j * BK;
-        const bool edge = (causal && k0 + BK - 1 > q0) || k0 + BK > s;
+        const bool edge = (causal && k0 + BK - 1 > q0) || k0 + BK > sk;
 #pragma unroll
         for (int n = 0; n < NS; ++n)
 #pragma unroll
@@ -493,7 +499,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                 if (edge) {
                     const int col = k0 + n * 8 + t4 * 2 + (e & 1);
                     const int row = row_a + (e >> 1) * 8;
-                    if (col >= s || (causal && col > row)) sc[n][e] = NEG_INF;
+                    if (col >= sk || (causal && col > row))
+                        sc[n][e] = NEG_INF;
                 }
             }
 
@@ -555,8 +562,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
         __syncthreads();                 // every warp is done with stage
         if (j + 2 < n_k) {
-            load_tile<D>(ks + (j & 1) * TILE, kp, (j + 2) * BK, s);
-            load_tile<D>(vs + (j & 1) * TILE, vp, (j + 2) * BK, s);
+            load_tile<D>(ks + (j & 1) * TILE, kp, (j + 2) * BK, sk);
+            load_tile<D>(vs + (j & 1) * TILE, vp, (j + 2) * BK, sk);
         }
         cp_async_commit();               // empty past the end: keeps the
     }                                    // wait count uniform
@@ -565,7 +572,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
         const int row = row_a + i * 8;
-        if (row >= s) continue;
+        if (row >= sq) continue;
         const float den = fmaxf(l[i], 1e-30f);
         __nv_bfloat16* orow = op + static_cast<long long>(row) * D + t4 * 2;
 #pragma unroll
@@ -578,7 +585,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int b, int hq, int hkv, int s, int causal,
+                        int b, int hq, int hkv, int sq, int sk, int causal,
                         float scale, cudaStream_t stream) {
     // the q tile and two stages each of K and V
     const int bytes = 5 * BK * D * static_cast<int>(sizeof(__nv_bfloat16));
@@ -586,42 +593,42 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
         flash_fwd_bf16_kernel<D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    const dim3 grid(hq, (s + BQ - 1) / BQ, b);
+    const dim3 grid(hq, (sq + BQ - 1) / BQ, b);
     flash_fwd_bf16_kernel<D><<<grid, TC_THREADS, bytes, stream>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(o), hq, hkv, s, causal != 0, scale);
+        static_cast<__nv_bfloat16*>(o), hq, hkv, sq, sk, causal != 0, scale);
     return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int hq, int hkv, int s, int causal, int bf16,
-                   float scale, cudaStream_t stream) {
-    return bf16 ? launch_bf16<D>(q, k, v, o, b, hq, hkv, s, causal, scale,
-                                 stream)
-                : launch_f32<D>(q, k, v, o, b, hq, hkv, s, causal, scale,
-                                stream);
+                   int b, int hq, int hkv, int sq, int sk, int causal,
+                   int bf16, float scale, cudaStream_t stream) {
+    return bf16 ? launch_bf16<D>(q, k, v, o, b, hq, hkv, sq, sk, causal,
+                                 scale, stream)
+                : launch_f32<D>(q, k, v, o, b, hq, hkv, sq, sk, causal,
+                                scale, stream);
 }
 
 }  // namespace
 
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int b, int hq, int hkv, int s, int d,
-                               int causal, int bf16, float scale,
-                               void* stream) {
+                               void* o, int b, int hq, int hkv, int sq,
+                               int sk, int d, int causal, int bf16,
+                               float scale, void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     switch (d) {
-        case 16: err = launch<16>(q, k, v, o, b, hq, hkv, s, causal, bf16,
-                                  scale, st); break;
-        case 32: err = launch<32>(q, k, v, o, b, hq, hkv, s, causal, bf16,
-                                  scale, st); break;
-        case 64: err = launch<64>(q, k, v, o, b, hq, hkv, s, causal, bf16,
-                                  scale, st); break;
-        case 128: err = launch<128>(q, k, v, o, b, hq, hkv, s, causal, bf16,
-                                    scale, st); break;
+        case 16: err = launch<16>(q, k, v, o, b, hq, hkv, sq, sk, causal,
+                                  bf16, scale, st); break;
+        case 32: err = launch<32>(q, k, v, o, b, hq, hkv, sq, sk, causal,
+                                  bf16, scale, st); break;
+        case 64: err = launch<64>(q, k, v, o, b, hq, hkv, sq, sk, causal,
+                                  bf16, scale, st); break;
+        case 128: err = launch<128>(q, k, v, o, b, hq, hkv, sq, sk, causal,
+                                    bf16, scale, st); break;
         default: err = cudaErrorInvalidValue;
     }
     return static_cast<int>(err);

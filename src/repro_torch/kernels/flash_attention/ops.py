@@ -19,8 +19,9 @@ CHUNKED_THRESHOLD = 8192
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, use_pallas: bool = False) -> torch.Tensor:
-    """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D).  A CUDA
-    tensor with ``use_pallas=True`` launches the kernel or raises."""
+    """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) -> (B, Hq, Sq, D); Sk may
+    differ from Sq when ``causal`` is false.  A CUDA tensor with
+    ``use_pallas=True`` launches the kernel or raises."""
     if use_pallas and q.device.type != "cpu":
         return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=causal)

@@ -18,7 +18,8 @@ def _scale(d: int) -> float:
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True) -> torch.Tensor:
-    """q (B, Hq, S, D); k/v (B, Hkv, S, D) with Hq % Hkv == 0.
+    """q (B, Hq, Sq, D); k/v (B, Hkv, Sk, D) with Hq % Hkv == 0 (Sk = Sq
+    when causal).
 
     fp32 softmax whatever the input dtype (the kernel's accumulator
     precision); the causal mask is -inf; the output takes q's dtype."""
@@ -87,7 +88,7 @@ def mha_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     masked scores -1e30; P split into ``hi = bf16(p)`` and
     ``lo = bf16(p - hi)``, both multiplied into the fp32 accumulator; l
     the fp32 sum of the unsplit p; the output acc / max(l, 1e-30) rounded
-    to bf16.  q (B, Hq, S, D), k/v (B, Hkv, S, D), all bfloat16."""
+    to bf16.  q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), all bfloat16."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"mha_tiled_ref: {name} is {t.dtype}; it "
@@ -102,7 +103,7 @@ def mha_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = torch.full((b, hkv, group, s, 1), -1e30, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, hkv, group, s, d), device=q.device)
-    for k0 in range(0, s, BLOCK_K):
+    for k0 in range(0, k.shape[2], BLOCK_K):
         kt = k[:, :, None, k0:k0 + BLOCK_K].float()
         vt = v[:, :, None, k0:k0 + BLOCK_K].float()
         sc = (qf @ kt.transpose(-1, -2)) * scale

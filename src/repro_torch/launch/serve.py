@@ -1,5 +1,7 @@
 """Serving entry point: continuous-batched greedy decoding, on the card unless
-``--device cpu`` is given.
+``--device cpu`` is given.  Every architecture of ``configs`` but the
+encoder-decoder one (whisper-small, whose prompts need audio frames that
+a token request does not carry: ``greedy_generate`` serves it).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --smoke --requests 8 --slots 4 --max-new 16 --device cpu
@@ -37,6 +39,12 @@ def main(argv: list[str] | None = None) -> None:
     cfg = dataclasses.replace(get_config(args.arch, smoke=args.smoke),
                               use_flash=True)
     model = build_model(cfg, device=args.device)
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{args.arch}: the encoder-decoder family needs audio 'frames' "
+            f"with each prompt, and ContinuousBatcher's requests carry "
+            f"tokens only; serve it with training.greedy_generate and a "
+            f"batch that holds the frames")
     rng = np.random.default_rng(0)
 
     params = model.init(torch.Generator(device=model.device).manual_seed(0))

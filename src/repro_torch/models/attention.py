@@ -61,13 +61,24 @@ def _qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig,
 
 def attention_fwd(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                   causal: bool = True,
-                  positions: torch.Tensor | None = None) -> torch.Tensor:
-    """Full-sequence self-attention (train / prefill).  x: (B, S, d).
-    The reference's ``kv_override`` (Whisper's cross-attention) comes
-    with the Whisper port."""
+                  positions: torch.Tensor | None = None,
+                  kv_override: tuple | None = None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill).  x: (B, S, d).
+
+    ``kv_override=(ctx,)`` is cross-attention (Whisper's decoder): q from
+    x, k and v from ``ctx`` (B, T, d), no rotary, never causal; the
+    kernel sweeps the T keys of ``ctx`` whatever S is."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
-    q, k, v = _qkv(params, x, cfg, positions)
+    if kv_override is None:
+        q, k, v = _qkv(params, x, cfg, positions)
+    else:
+        dt = cfg.dtype
+        (ctx,) = kv_override
+        q = torch.einsum("bsd,dhk->bshk", x, params.wq.to(dt))
+        k = torch.einsum("bsd,dhk->bshk", ctx, params.wk.to(dt))
+        v = torch.einsum("bsd,dhk->bshk", ctx, params.wv.to(dt))
+        causal = False
     # (B, H, S, hd) layout for the kernel
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal,

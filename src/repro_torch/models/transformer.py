@@ -1,9 +1,11 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM: the dense, MoE and VLM families.
 
 The reference stacks the layers' parameters and scans over them; here
 the layers are an ``nn.ModuleList`` walked by a Python loop, in the
 reference's order (group by group, sub-layer by sub-layer), so the KV
-cache's leading axis means the same layer in both.  Block weights and
+cache's leading axis means the same layer in both.  MoE interleaving
+(llama4's alternate dense/MoE) follows the reference's groups of
+``moe_every`` sub-layers, the last of each group MoE.  Block weights and
 norm scales are stored in ``cfg.dtype`` once, at init or load: that is
 what every per-use cast of the reference computes, at half the memory
 in bf16.  The embedding and unembedding tables stay in
@@ -21,20 +23,20 @@ from .common import ModelConfig, frozen
 from .kernels_glue import flash_attention
 from .layers import embed_tokens, init_embedding, rms_norm, unembed
 from .mlp import MLP, init_mlp, mlp_fwd
-
-MOE_TODO = "ROADMAP.md queue 1, item 9: MoE (models/moe.py)"
+from .moe import MoE, init_moe, moe_fwd
 
 
 class Block(nn.Module):
-    """One dense sub-layer: ln1, attention, ln2, MLP."""
+    """One sub-layer: ln1, attention, ln2 and its FFN, an MLP (dense) or
+    a mixture of experts (moe)."""
 
     def __init__(self, ln1: torch.Tensor, attn: Attention,
-                 ln2: torch.Tensor, mlp: MLP):
+                 ln2: torch.Tensor, ffn: MLP | MoE):
         super().__init__()
         self.ln1 = frozen(ln1)
         self.attn = attn
         self.ln2 = frozen(ln2)
-        self.mlp = mlp
+        self.ffn = ffn
 
 
 class LM(nn.Module):
@@ -65,33 +67,34 @@ def _group_structure(cfg: ModelConfig) -> tuple[int, list[str]]:
     return cfg.n_layers // g, kinds
 
 
-def dense_groups(cfg: ModelConfig) -> tuple[int, list[str]]:
-    """``_group_structure`` for the kinds the port has."""
-    n_groups, kinds = _group_structure(cfg)
-    if "moe" in kinds:
-        raise NotImplementedError(f"{cfg.arch_id}: MoE sub-layers are not "
-                                  f"ported yet ({MOE_TODO})")
-    return n_groups, kinds
-
-
 def init_lm(generator: torch.Generator, cfg: ModelConfig) -> LM:
     """Random weights on the generator's device, drawn in fp32."""
-    n_groups, kinds = dense_groups(cfg)
+    n_groups, kinds = _group_structure(cfg)
     dev, d = generator.device, cfg.d_model
+
+    def ffn(kind):
+        if kind == "moe":
+            return init_moe(generator, cfg, cfg.dtype)
+        return init_mlp(generator, d, cfg.d_ff, cfg.dtype)
+
     embed = init_embedding(generator, cfg)
     layers = [Block(torch.ones(d, dtype=cfg.dtype, device=dev),
                     init_attention(generator, cfg, cfg.dtype),
-                    torch.ones(d, dtype=cfg.dtype, device=dev),
-                    init_mlp(generator, d, cfg.d_ff, cfg.dtype))
-              for _ in range(n_groups) for _ in kinds]
+                    torch.ones(d, dtype=cfg.dtype, device=dev), ffn(kind))
+              for _ in range(n_groups) for kind in kinds]
     out = None if cfg.tie_embeddings else init_embedding(generator, cfg)
     return LM(embed, layers, torch.ones(d, dtype=cfg.dtype, device=dev), out)
 
 
 # ----------------------------------------------------------------------
-def _ffn(sub: Block, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(sub: Block, x: torch.Tensor, cfg: ModelConfig
+         ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """-> (x + FFN(ln2(x)), the MoE aux loss or None for an MLP)."""
     h = rms_norm(x, sub.ln2.to(cfg.dtype), cfg.norm_eps)
-    return x + mlp_fwd(sub.mlp, h, cfg.dtype)
+    if isinstance(sub.ffn, MoE):
+        y, aux = moe_fwd(sub.ffn, h, cfg)
+        return x + y, aux
+    return x + mlp_fwd(sub.ffn, h, cfg.dtype), None
 
 
 def lm_forward(params: LM, cfg: ModelConfig, *,
@@ -104,12 +107,14 @@ def lm_forward(params: LM, cfg: ModelConfig, *,
     else:
         x = embeds.to(cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for sub in params.layers:
         h = rms_norm(x, sub.ln1.to(cfg.dtype), cfg.norm_eps)
         x = x + attention_fwd(sub.attn, h, cfg, positions=positions)
-        x = _ffn(sub, x, cfg)
+        x, a = _ffn(sub, x, cfg)
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, params.ln_f.to(cfg.dtype), cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params.out_table, x), aux
 
 
@@ -150,7 +155,7 @@ def _prefill_from_embeds(params: LM, cfg: ModelConfig, x: torch.Tensor,
                             use_pallas=cfg.use_flash)
         y = torch.einsum("bshk,hkd->bsd", o.transpose(1, 2),
                          sub.attn.wo.to(cfg.dtype))
-        x = _ffn(sub, x + y, cfg)
+        x, _ = _ffn(sub, x + y, cfg)
         k_all[i, :, :, :s] = kh
         v_all[i, :, :, :s] = vh
     x = rms_norm(x, params.ln_f.to(cfg.dtype), cfg.norm_eps)
@@ -168,7 +173,7 @@ def lm_decode_step(params: LM, cfg: ModelConfig, token: torch.Tensor,
         h = rms_norm(x, sub.ln1.to(cfg.dtype), cfg.norm_eps)
         y, _, _ = attention_decode(sub.attn, h, cache["k"][i],
                                    cache["v"][i], length, cfg)
-        x = _ffn(sub, x + y, cfg)
+        x, _ = _ffn(sub, x + y, cfg)
     x = rms_norm(x, params.ln_f.to(cfg.dtype), cfg.norm_eps)
     logits = unembed(params.out_table, x)
     return logits, {"k": cache["k"], "v": cache["v"], "length": length + 1}

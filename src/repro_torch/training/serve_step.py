@@ -105,25 +105,30 @@ class ContinuousBatcher:
         return finished
 
 
-def _splice_cache(batch_cache: dict, single_cache: dict, slot: int) -> dict:
+def _splice_cache(batch_cache, single_cache, slot: int):
     """Write a single-request cache into slot ``slot`` of the batched
-    cache, in place.  The batch axis of each tensor is found
-    structurally (the first axis where the two differ; none: left as it
-    is).  A scalar, the shared ``length``, is replaced by the single
-    cache's, as in the reference: slots filled at other lengths then
-    decode at this request's position."""
-    out = {}
-    for name, b in batch_cache.items():
-        s = single_cache[name]
-        if not isinstance(b, torch.Tensor) or b.dim() == 0:
-            out[name] = s
-            continue
-        axes = [i for i in range(b.dim())
-                if i < s.dim() and b.shape[i] != s.shape[i]]
-        if axes:
-            ax = axes[0]
-            # the reference's dynamic_update_slice clamps the start
-            start = min(slot, b.shape[ax] - s.shape[ax])
-            b.narrow(ax, start, s.shape[ax]).copy_(s)
-        out[name] = b
-    return out
+    cache, in place, leaf by leaf over the tree (dicts, and tuples such
+    as ``MambaCache``, ``MLSTMCache`` or ``SLSTMCache``), as the
+    reference's ``jax.tree.map`` walks it.  The batch axis of each tensor
+    is found structurally (the first axis where the two differ; none:
+    left as it is).  A scalar, the shared ``length``, is replaced by the
+    single cache's, as in the reference: slots filled at other lengths
+    then decode at this request's position."""
+    if isinstance(batch_cache, dict):
+        return {name: _splice_cache(b, single_cache[name], slot)
+                for name, b in batch_cache.items()}
+    if isinstance(batch_cache, tuple):
+        return type(batch_cache)(*(
+            _splice_cache(b, s, slot)
+            for b, s in zip(batch_cache, single_cache, strict=True)))
+    b, s = batch_cache, single_cache
+    if not isinstance(b, torch.Tensor) or b.dim() == 0:
+        return s
+    axes = [i for i in range(b.dim())
+            if i < s.dim() and b.shape[i] != s.shape[i]]
+    if axes:
+        ax = axes[0]
+        # the reference's dynamic_update_slice clamps the start
+        start = min(slot, b.shape[ax] - s.shape[ax])
+        b.narrow(ax, start, s.shape[ax]).copy_(s)
+    return b

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, smoke_batch
 from repro_torch.core import CudaTransport, PluginRunner
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ops import attention
@@ -31,6 +31,7 @@ from repro_torch.kernels.sino_filter.ref import (filter_sino_batched_ref,
                                                  scale_spectrum_batched_ref,
                                                  scale_spectrum_ref)
 from repro_torch.models import build_model
+from repro_torch.training import greedy_generate
 from repro_torch.tomo import (ParallelGeometry, phantom_stack,
                               simulate_raw_scan, standard_chain)
 
@@ -532,6 +533,39 @@ def test_flash_attention_kernel_bf16_on_card(cuda, rng):
                                rtol=1e-2, atol=1e-3)
 
 
+# (B, Hq, Hkv, Sq, Sk, D): Whisper's cross-attention (4 decoder tokens
+# against 1500 encoder frames, which no 64-key tile divides), more
+# queries than keys, grouped heads and a single key
+FLASH_CROSS_CASES = [(4, 12, 12, 4, 1500, 64), (2, 4, 2, 100, 37, 32),
+                     (1, 8, 2, 65, 130, 128), (2, 2, 1, 3, 1, 16)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D", FLASH_CROSS_CASES)
+def test_flash_attention_kernel_own_key_length_on_card(cuda, rng, B, Hq, Hkv,
+                                                       Sq, Sk, D, dtype):
+    """Non-causal attention over Sk keys of its own, as Whisper's
+    cross-attention needs, against ``mha_ref`` (fp32 2e-5; bf16 rtol
+    1e-2, atol 1e-3) and, in bf16, against its own tiled arithmetic."""
+    dt = getattr(torch, dtype)
+    q = _t(rng.normal(size=(B, Hq, Sq, D))).to(cuda, dt)
+    k, v = (_t(rng.normal(size=(B, Hkv, Sk, D))).to(cuda, dt)
+            for _ in range(2))
+    n = flash_attention_cuda.launches
+    got = attention(q, k, v, causal=False, use_pallas=True)
+    assert flash_attention_cuda.launches == n + 1
+    assert got.shape == q.shape and got.dtype == dt
+    got = got.float().cpu().numpy()
+    tol = (dict(rtol=2e-5, atol=2e-5) if dtype == "float32"
+           else dict(rtol=1e-2, atol=1e-3))
+    np.testing.assert_allclose(
+        got, mha_ref(q, k, v, causal=False).float().cpu().numpy(), **tol)
+    if dtype == "bfloat16":
+        np.testing.assert_allclose(
+            got, mha_tiled_ref(q, k, v, causal=False).float().cpu().numpy(),
+            rtol=2.0 ** -7, atol=1e-5)
+
+
 @pytest.mark.parametrize("shapes,match", [
     (((1, 2, 64, 32), (1, 2, 48, 32)), "one length"),
     (((1, 2, 64, 48), (1, 2, 64, 48)), "head dim"),
@@ -542,6 +576,15 @@ def test_flash_attention_kernel_refuses_on_card(cuda, shapes, match):
     kv = torch.zeros(shapes[1], device=cuda)
     with pytest.raises(ValueError, match=match):
         flash_attention_cuda(q, kv, kv)
+
+
+def test_flash_attention_kernel_causal_needs_one_length_on_card(cuda):
+    """Sq != Sk is taken when non-causal and refused when causal."""
+    q = torch.zeros((1, 2, 8, 32), device=cuda)
+    kv = torch.zeros((1, 2, 24, 32), device=cuda)
+    assert flash_attention_cuda(q, kv, kv, causal=False).shape == q.shape
+    with pytest.raises(ValueError, match="causal attention takes one length"):
+        flash_attention_cuda(q, kv, kv, causal=True)
 
 
 def test_lm_prefill_with_kernel_matches_cpu(cuda):
@@ -559,6 +602,39 @@ def test_lm_prefill_with_kernel_matches_cpu(cuda):
     assert flash_attention_cuda.launches == n + cfg.n_layers
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
                                atol=2e-4)
+
+
+# each family's smoke configuration and its flash launches per prefill:
+# one per attention layer, the shared block's applications (Zamba2), the
+# encoder's, the decoder's self- and cross-attention layers (Whisper)
+FAMILY_LAUNCHES = {"qwen3-moe-235b-a22b": 3, "llama4-maverick-400b-a17b": 4,
+                   "llava-next-34b": 2, "zamba2-1.2b": 2, "xlstm-1.3b": 0,
+                   "whisper-small": 6}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_LAUNCHES))
+def test_family_on_card_matches_cpu(cuda, arch):
+    """A family's smoke model (fp32) with the kernel on the card against
+    the plain versions on the CPU, on the same weights: prefill logits
+    within 2e-4, greedy tokens identical."""
+    import copy
+    import dataclasses
+    cfg = dataclasses.replace(get_config(arch, smoke=True), use_flash=True)
+    cpu_model, card_model = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    card_params = copy.deepcopy(params).to(cuda)     # Module.to moves
+    batch = smoke_batch(cfg, batch=2, seq=16, seed=3)
+    batch.pop("labels")
+    want, _ = cpu_model.prefill(params, batch, 32)
+    n = flash_attention_cuda.launches
+    got, _ = card_model.prefill(card_params, batch, 32)
+    assert flash_attention_cuda.launches == n + FAMILY_LAUNCHES[arch]
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_array_equal(
+        greedy_generate(card_model, card_params, batch, max_new=6,
+                        max_len=32),
+        greedy_generate(cpu_model, params, batch, max_new=6, max_len=32))
 
 
 # ------------------------------------------------ broker-mode workers

@@ -29,6 +29,9 @@ from repro_torch.tomo import ParallelGeometry, forward_project, \
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+#: the families beside the dense one, one architecture each
+FAMILIES = ["qwen3-moe-235b-a22b", "llava-next-34b", "zamba2-1.2b",
+            "xlstm-1.3b", "whisper-small"]
 
 
 def _port_files():
@@ -65,7 +68,13 @@ def test_port_imports_with_jax_and_reference_blocked():
         *[f"importlib.import_module({m!r})"
           for m in ["repro_torch", "repro_torch.core", "repro_torch.tomo",
                     "repro_torch.configs", "repro_torch.models",
-                    "repro_torch.models.convert", "repro_torch.training",
+                    "repro_torch.models.convert",
+                    "repro_torch.models.moe", "repro_torch.models.ssd",
+                    "repro_torch.models.mamba2", "repro_torch.models.zamba",
+                    "repro_torch.models.xlstm",
+                    "repro_torch.models.xlstm_model",
+                    "repro_torch.models.whisper",
+                    "repro_torch.models.model_zoo", "repro_torch.training",
                     "repro_torch.launch.serve", "repro_torch.obs",
                     "repro_torch.service", "repro_torch.service.server",
                     "repro_torch.service.client",
@@ -114,11 +123,16 @@ def test_runner_without_transport_needs_the_card(no_cuda):
     lambda: spawn_local_workers("http://127.0.0.1:9", 1),
     lambda: PipelineService(workers_remote=True),
     lambda: pipeline_serve.main(["--workers-remote", "1"]),
+    *[lambda a=a: build_model(get_config(a, smoke=True)) for a in FAMILIES],
+    *[lambda a=a: serve.main(["--arch", a, "--smoke", "--requests", "1"])
+      for a in FAMILIES],
 ], ids=["resolve_device", "inmemory", "chunked", "forward_project",
         "build_model", "serve", "scheduler", "pipeline_serve",
         "pipeline_service", "client_ingest_synthetic", "worker_main",
         "spawn_local_workers", "pipeline_service_broker",
-        "pipeline_serve_workers_remote"])
+        "pipeline_serve_workers_remote",
+        *[f"build_model_{a}" for a in FAMILIES],
+        *[f"serve_{a}" for a in FAMILIES]])
 def test_entry_points_default_to_the_card(no_cuda, make):
     with pytest.raises(RuntimeError, match="cpu"):
         make()

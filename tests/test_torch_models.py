@@ -218,10 +218,22 @@ def test_granite_8b_size():
     assert (cfg.n_heads, cfg.n_kv_heads, cfg.hd) == (32, 8, 128)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in DENSE])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config(arch, smoke=True), device="cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_build_model_builds_every_architecture(arch):
+    """Every configuration builds, initialises on the model's device and
+    caches on it.  A transformer's weights hold as many values as the
+    reference's ``param_count`` says and the final norm's d, which that
+    count leaves out (its formula does not model the recurrent families'
+    blocks)."""
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    assert not any(p.requires_grad for p in params.parameters())
+    cache = model.init_cache(2, 8)
+    assert cache["length"] == 0
+    if cfg.family in ("dense", "moe", "vlm"):
+        assert sum(p.numel() for p in params.parameters()) == \
+            cfg.param_count() + cfg.d_model
 
 
 def test_params_from_jax_keeps_shapes_and_ties():
