@@ -139,7 +139,35 @@ Phases, each fatal on failure:
    (fp32, llama4-maverick's dense/MoE interleave and shared expert
    included) through ``greedy_generate`` with the kernel on the card and
    with the plain versions on the CPU, on the same weights: identical
-   tokens, prefill logits within 2e-4.
+   tokens, prefill logits within 2e-4;
+9. training, through the entry points a trainer calls
+   (``build_model(cfg, training=True)``, ``init_training``,
+   ``make_train_step``, ``token_stream``, ``launch.train``); no kernel
+   of the port is on this path (the reference trains with
+   ``use_flash=False``):
+   a. granite-8b ``FULL`` at full width (fp32 weights, bf16 compute,
+      random weights from seed 0) at the repo's ``train_4k`` shape, seq
+      4096, the global batch cut from 256 to 8 in 8 microbatch chunks,
+      remat 'dots', fp32 moments; the depth is what fits the free
+      memory by a byte count made before the run (``train_depth``,
+      printed as ``{"train_depth": ...}``).  1 warm-up and 2 timed steps
+      on one repeated batch (the loss must fall): step ms, tokens/s, MFU
+      (6·N·tokens / step / 989e12, N without the input table), peak
+      memory net of what was resident; one step under
+      ``torch.profiler`` (device busy share, top kernels); then 1 step
+      with remat 'nothing' and 1 with int8 moments (quantised from the
+      fp32 ones), each peaking lower than 'dots' with fp32 moments, the
+      measured differences beside the predicted ones (one step sets a
+      run's peak; the steps of a run spread by 0.3 %);
+   b. every architecture's smoke config: 2 train steps on the card and
+      on the CPU from the same weights and batch (loss and grad norm
+      within rtol 1e-4; updated leaves within ``train_parity_phase``'s
+      bounds), MoE's scatter and the sLSTM loop on the card;
+   c. ``python -m repro_torch.launch.train`` (dense smoke, on the card)
+      run uninterrupted and, beside it, run again SIGKILLed once
+      ``step_19`` is published and restarted: it resumes at step 20, and
+      its final checkpoint must equal the uninterrupted run's bit for
+      bit.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (the
 correction row also gives the gang launch, ``batched_*``, and the
@@ -149,7 +177,10 @@ last line is ``{"ok": true, "device": {...}}``.  Phases 3a-3e print one
 ``{"stream_resume": ...}``, ``{"http_service": ...}`` and
 ``{"remote_workers": ...}`` line each; phase 2's family shapes one
 ``{"flash_attention_families": [...]}`` line, phases 7 and 8 one
-``{"families": ...}`` and one ``{"family_parity": ...}`` line.
+``{"families": ...}`` and one ``{"family_parity": ...}`` line, phase 9
+one ``{"train": ...}``, ``{"train_parity": ...}`` and
+``{"train_resume": ...}`` line, each with the card's name and power
+limit.
 Every bound is computed from the kernels' own ``cost()`` counts, the
 numbers the service's process spans carry.  Without a CUDA device,
 or without the repository's ``src/repro_torch`` beside this file, it
@@ -264,6 +295,21 @@ FAMILIES = {
 FAMILY_PARITY = ["qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
                  "llava-next-34b", "zamba2-1.2b", "xlstm-1.3b",
                  "whisper-small"]
+#: phase 9a: granite-8b FULL trained at full width at the repo's
+#: ``train_4k`` shape (seq 4096; the global batch cut from 256 to 8, one
+#: sequence a microbatch chunk), remat 'dots', fp32 moments; 1 warm-up
+#: and 2 timed steps on one repeated batch, then 1 step each with remat
+#: 'nothing' and with int8 moments; the depth is cut to what fits
+TRAIN = {"arch": "granite-8b", "seq": 4096, "batch": 8, "microbatch": 8,
+         "warmup": 1, "timed": 2, "extra_steps": 1, "lr": 3e-4}
+#: share of the free device memory the depth estimate leaves to the
+#: allocator (fragmentation, the optimizer's per-leaf temporaries)
+TRAIN_MARGIN = 0.10
+#: phase 9b: train steps of each smoke config, card against CPU
+TRAIN_PARITY_STEPS = 2
+#: phase 9c: launch.train killed once step_<kill_after> is published
+RESUME_TRAIN = {"arch": "granite-8b", "steps": 40, "ckpt_every": 10,
+                "kill_after": 19}
 
 
 def fail(msg: str) -> None:
@@ -1131,6 +1177,381 @@ def family_parity_phase(dev, compare) -> dict:
     return report
 
 
+# ----------------------------------------------------------------------
+# phase 9: training
+def train_depth(cfg, free_bytes: float, seq: int, chunk: int) -> dict:
+    """How many of ``cfg``'s layers train in ``free_bytes`` at ``seq``
+    tokens, ``chunk`` sequences a microbatch, remat 'dots' and fp32
+    moments; computed from bytes before the run:
+
+    - per layer: 16 B a parameter (fp32 weight, gradient, m, v), 2 B a
+      parameter for the bf16 casts autograd keeps, and what 'dots' saves
+      of one chunk (the layer's input, q/k/v, the attention's output
+      projection, up, gate and down: bf16);
+    - fixed: the two tables' 16 B a parameter; the fp32 logits, their
+      gradient and one more temporary of that size; one layer's plain
+      attention backward (fp32 scores, probabilities and their gradients,
+      four (chunk, heads, seq, seq) tensors);
+    - a margin of ``TRAIN_MARGIN`` of the free bytes for the allocator.
+    """
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    attn = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * hd * d
+    layer_params = attn + 3 * d * f + 2 * d
+    tokens = chunk * seq
+    saved = 2 * tokens * (cfg.n_heads * hd + 2 * cfg.n_kv_heads * hd +
+                          3 * d + 2 * f)
+    per_layer = 18 * layer_params + saved
+    tables = (1 if cfg.tie_embeddings else 2) * cfg.vocab * d + d
+    fixed = (16 * tables + 3 * 4 * tokens * cfg.vocab +
+             4 * 4 * chunk * cfg.n_heads * seq * seq)
+    depth = int((free_bytes * (1 - TRAIN_MARGIN) - fixed) // per_layer)
+    return {"depth": max(0, min(cfg.n_layers, depth)),
+            "of": cfg.n_layers, "free_bytes": int(free_bytes),
+            "per_layer_bytes": int(per_layer), "fixed_bytes": int(fixed),
+            "layer_params": int(layer_params), "dots_saved_bytes_per_layer":
+            int(saved), "margin": TRAIN_MARGIN}
+
+
+def _moment_bytes(params, moments: str) -> int:
+    """Bytes of the AdamW moments (m and v) of ``params``."""
+    total = 0
+    for p in params.parameters():
+        if moments == "int8":
+            rows = p.numel() // p.shape[-1] if p.dim() else 1
+            total += 2 * (p.numel() + 4 * rows)
+        else:
+            total += 2 * 4 * p.numel()
+    return total
+
+
+def train_phase(dev, smi: str) -> dict:
+    """Phase 9a: granite-8b ``FULL`` trained at full width (see the module
+    docstring)."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_stream
+    from repro_torch.launch.train import DATA_SEED
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import _q8
+    from repro_torch.training import init_training, make_train_step
+
+    t0 = time.perf_counter()
+    seq, gb, mb = TRAIN["seq"], TRAIN["batch"], TRAIN["microbatch"]
+    full = get_config(TRAIN["arch"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = train_depth(full, torch.cuda.mem_get_info(dev)[0], seq, gb // mb)
+    depth = cut["depth"]
+    print(json.dumps({"train_depth": cut, "card": smi}), flush=True)
+    if depth < 1:
+        fail(f"training: no layer of {TRAIN['arch']} fits ({cut})")
+    cfg = dataclasses.replace(full, n_layers=depth, remat=True,
+                              remat_policy="dots")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in token_stream(
+        cfg.vocab, gb, seq, seed=DATA_SEED, step=0).items()}
+    resident = torch.cuda.memory_allocated(dev)
+    model = build_model(cfg, dev, training=True)
+    t = time.perf_counter()
+    params, opt = init_training(
+        model, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t
+    n_all = sum(p.numel() for p in params.parameters())
+    # 6·N·tokens counts the products a token meets: not the embedding's
+    # row gather
+    n_flops = sum(p.numel() for n, p in params.named_parameters()
+                  if n != "embed")
+    tokens = gb * seq
+    opt_cfg = AdamWConfig(lr=TRAIN["lr"], warmup_steps=1, total_steps=100)
+
+    def run(model, opt_cfg, params, opt, n):
+        step = make_train_step(model, opt_cfg, microbatch=mb)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms, losses, gnorms = [], [], []
+        for _ in range(n):
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))         # waits for the step
+            ms.append((time.perf_counter() - t1) * 1e3)
+            gnorms.append(float(m["grad_norm"]))
+        peak = torch.cuda.max_memory_allocated(dev) - resident
+        if not all(np.isfinite(losses + gnorms)):
+            fail(f"training: non-finite loss or grad norm {losses} "
+                 f"{gnorms}")
+        return params, opt, {"step_ms": ms, "loss": losses,
+                             "grad_norm": gnorms, "peak_bytes": peak}
+
+    parts = {"setup_s": time.perf_counter() - t0}
+    t = time.perf_counter()
+    n_main = TRAIN["warmup"] + TRAIN["timed"]
+    params, opt, dots = run(model, opt_cfg, params, opt, n_main)
+    timed = dots["step_ms"][TRAIN["warmup"]:]
+    step_s = statistics.median(timed) / 1e3
+    dots.update({"step_ms_median": step_s * 1e3,
+                 "tokens_per_s": tokens / step_s,
+                 "mfu": 6 * n_flops * tokens / step_s / PEAK_BF16_FLOPS})
+    if not dots["loss"][-1] < dots["loss"][0]:
+        fail(f"training: the loss did not fall on a repeated batch "
+             f"{dots['loss']}")
+    parts["dots_s"] = time.perf_counter() - t
+
+    # where a step's time goes: one step under the profiler (device
+    # activity only: the host's op events cost more to record and sort
+    # than the step's kernels)
+    t = time.perf_counter()
+    step = make_train_step(model, opt_cfg, microbatch=mb)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        float(m["loss"])
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy_ms > 0:
+        fail("training: the profiler recorded no device time in a step")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    profile = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+               "busy_share": busy_ms / wall_ms,
+               "top_kernels_ms": [[e.key[:80],
+                                   e.self_device_time_total / 1e3,
+                                   e.count] for e in top]}
+    del prof, kernels, top
+    parts["profile_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    n_extra = TRAIN["extra_steps"]
+    nothing_model = build_model(dataclasses.replace(
+        cfg, remat_policy="nothing"), dev, training=True)
+    params, opt, nothing = run(nothing_model, opt_cfg, params, opt, n_extra)
+    parts["nothing_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fp32_moments = _moment_bytes(params, "fp32")
+    # the int8 run goes on from the fp32 moments, quantised: fresh zero
+    # moments would make its first update lr · sign(g) on every weight
+    opt8 = {"step": opt["step"]}
+    for k in ("m", "v"):
+        opt8[k] = {}
+        while opt[k]:
+            name, moment = opt[k].popitem()
+            opt8[k][name] = _q8(moment)
+            del moment
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["quantise_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    params, opt8, int8 = run(model, dataclasses.replace(
+        opt_cfg, moments_dtype="int8"), params, opt8, n_extra)
+    parts["int8_s"] = time.perf_counter() - t
+    for r in (nothing, int8):
+        r["step_ms_median"] = statistics.median(r["step_ms"])
+    # 'nothing' saves each layer's input too, and rebuilds one layer's
+    # saves in its backward
+    saved = train_depth(full, 0, seq, gb // mb)["dots_saved_bytes_per_layer"]
+    saved -= 2 * (gb // mb) * seq * cfg.d_model
+    report = {
+        "card": smi, "arch": TRAIN["arch"], "depth": depth,
+        "layers_of": full.n_layers, "d_model": cfg.d_model,
+        "seq": seq, "global_batch": gb, "microbatch": mb,
+        "remat": "dots", "moments": "fp32", "lr": TRAIN["lr"],
+        "params": n_all, "params_6nd": n_flops, "init_s": init_s,
+        "resident_bytes_before": resident,
+        "flops_6nd_per_step": 6 * n_flops * tokens,
+        "dots": dots, "profile": profile, "nothing": nothing,
+        "int8": int8,
+        "peak_dots_minus_nothing": dots["peak_bytes"] - nothing["peak_bytes"],
+        "predicted_dots_minus_nothing": (depth - 1) * saved,
+        "peak_fp32_minus_int8": dots["peak_bytes"] - int8["peak_bytes"],
+        "predicted_fp32_minus_int8": fp32_moments -
+        _moment_bytes(params, "int8")}
+    if not (nothing["peak_bytes"] < dots["peak_bytes"] and
+            int8["peak_bytes"] < dots["peak_bytes"]):
+        fail(f"training: remat 'nothing' ({nothing['peak_bytes']}) or int8 "
+             f"moments ({int8['peak_bytes']}) did not peak below 'dots' "
+             f"with fp32 moments ({dots['peak_bytes']})")
+    t = time.perf_counter()
+    del params, opt8, model, nothing_model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["cleanup_s"] = time.perf_counter() - t
+    report["parts_s"] = parts
+    return report
+
+
+def train_parity_phase(dev, smi: str) -> dict:
+    """Phase 9b: every architecture's smoke config (fp32): the same
+    weights and batch through ``TRAIN_PARITY_STEPS`` train steps on the
+    card and on the CPU.  Loss and grad norm within rtol 1e-4 each step.
+    Each updated leaf within rtol 1e-4 and atol 1e-2 · lr a step where
+    the first gradient is at least 1e-4 of its leaf's max, or is exactly
+    0 on both sides (weight decay alone moves those elements).  Elsewhere
+    a gradient that differs in its 1e-7 rounding moves Adam's normalised
+    step by a share of lr: there within 0.25 · lr a step (the largest
+    such difference measured on an H100 is 0.057 · lr a step)."""
+    import copy
+
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config, smoke_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.training import init_training, make_train_step
+
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    steps, lr = TRAIN_PARITY_STEPS, opt_cfg.lr
+    report = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, smoke=True)
+        cpu_model = build_model(cfg, "cpu", training=True)
+        card_model = build_model(cfg, dev, training=True)
+        params, opt = init_training(cpu_model,
+                                    torch.Generator().manual_seed(0))
+        card_params = copy.deepcopy(params).to(dev)
+        card_opt = init_opt_state(card_params)
+        batch = smoke_batch(cfg, batch=2, seq=16, seed=3)
+        grads = []
+        for model, p in ((cpu_model, params), (card_model, card_params)):
+            model.loss(p, batch).backward()
+            grads.append({n: q.grad.detach().cpu().abs()
+                          for n, q in p.named_parameters()})
+            for q in p.parameters():
+                q.grad = None
+        errs = {"loss": 0.0, "grad_norm": 0.0}
+        for s in range(steps):
+            params, opt, m = make_train_step(cpu_model, opt_cfg)(
+                params, opt, batch)
+            card_params, card_opt, cm = make_train_step(card_model, opt_cfg)(
+                card_params, card_opt, batch)
+            for k in errs:
+                a, b = float(cm[k]), float(m[k])
+                if not (np.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)):
+                    fail(f"train parity {arch}: step {s} {k} card {a} "
+                         f"cpu {b} (rtol 1e-4)")
+                errs[k] = max(errs[k], abs(a - b) / abs(b))
+        tight, loose, n_loose, n_zero = 0.0, 0.0, 0, 0
+        for (n, a), b in zip(params.named_parameters(),
+                             card_params.parameters()):
+            a, b = a.detach().double(), b.detach().cpu().double()
+            g, cg = grads[0][n], grads[1][n]
+            held = (g >= 1e-4 * g.max()) | ((g == 0) & (cg == 0))
+            err = (a - b).abs()
+            off = err > 1e-2 * lr * steps + 1e-4 * a.abs()
+            if (off & held).any() or float(err.max()) > 0.25 * lr * steps:
+                fail(f"train parity {arch}: {n} max abs err "
+                     f"{float(err.max()):.3e}, {int((off & held).sum())} "
+                     f"elements with a large or a zero gradient off")
+            tight = max(tight, float(err[held].max()) if held.any() else 0.0)
+            loose = max(loose, float(err.max()))
+            n_loose += int(off.sum())
+            n_zero += int(((g == 0) & (cg == 0)).sum())
+        report[arch] = {"loss_rel_err": errs["loss"],
+                        "grad_norm_rel_err": errs["grad_norm"],
+                        "max_abs_err_held_tight": tight,
+                        "max_abs_err": loose, "elements_past_tight": n_loose,
+                        "elements_zero_gradient": n_zero}
+    return {"card": smi, "steps": steps, "lr": lr, "archs": report}
+
+
+def train_resume_phase(dev, smi: str) -> dict:
+    """Phase 9c: ``python -m repro_torch.launch.train`` (dense smoke, on
+    the card): run A uninterrupted and, beside it, run B, the same
+    command, SIGKILLed once ``step_<kill_after>`` is published, then run
+    again: it must resume at the next step, and its final checkpoint must
+    equal A's bit for bit."""
+    import os
+    import signal
+
+    r = RESUME_TRAIN
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           r["arch"], "--smoke", "--steps", str(r["steps"]),
+           "--ckpt-every", str(r["ckpt_every"]), "--log-every", "10",
+           "--device", dev.type]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = {"card": smi, **r}
+    with tempfile.TemporaryDirectory(prefix="train-resume-") as tmp:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        # stderr to files: a pipe nobody reads while the runs go on
+        # could fill and stop them
+        err = {k: open(os.path.join(tmp, f"{k}.err"), "w+")
+               for k in ("a", "b")}
+        t0 = time.perf_counter()
+        run_a = subprocess.Popen(cmd + ["--ckpt-dir", a],
+                                 stdout=subprocess.DEVNULL,
+                                 stderr=err["a"], env=env)
+        marker = os.path.join(b, f"step_{r['kill_after']}")
+        proc = subprocess.Popen(cmd + ["--ckpt-dir", b],
+                                stdout=subprocess.DEVNULL,
+                                stderr=err["b"], env=env)
+
+        def tail(k):
+            err[k].seek(0)
+            return err[k].read()[-2000:]
+        try:
+            deadline = time.monotonic() + 600
+            while not os.path.isdir(marker):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    fail(f"train resume: run B ended ({proc.returncode}) "
+                         f"before {marker} appeared: {tail('b')}")
+                time.sleep(0.002)
+            proc.send_signal(signal.SIGKILL)
+            proc.wait(timeout=60)
+            kept = sorted(int(n.split("_")[1]) for n in os.listdir(b)
+                          if n.startswith("step_"))
+            out["killed_with_steps"] = kept
+            t1 = time.perf_counter()
+            res = subprocess.run(cmd + ["--ckpt-dir", b],
+                                 capture_output=True, text=True, env=env,
+                                 timeout=600)
+            out["run_b2_s"] = time.perf_counter() - t1
+            if res.returncode:
+                fail(f"train resume: run B again exited {res.returncode}: "
+                     f"{res.stderr[-2000:]}")
+            try:
+                run_a.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                fail("train resume: run A did not end within 600 s")
+            # from A's and B's start until A and B's second run have ended
+            out["runs_s"] = time.perf_counter() - t0
+            if run_a.returncode:
+                fail(f"train resume: run A exited {run_a.returncode}: "
+                     f"{tail('a')}")
+        finally:
+            for p in (run_a, proc):
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=60)
+            for fh in err.values():
+                fh.close()
+        want = f"resumed from step {r['kill_after']}"
+        if want not in res.stdout:
+            fail(f"train resume: run B did not print {want!r} (kept "
+                 f"{kept}): {res.stdout[-1000:]}")
+        out["resumed_at"] = r["kill_after"] + 1
+        last = f"step_{r['steps'] - 1}"
+        leaves = []
+        for d in (a, b):
+            with open(os.path.join(d, last, "manifest.json")) as fh:
+                n = json.load(fh)["n_leaves"]
+            leaves.append([np.load(os.path.join(d, last, f"leaf_{i}.npy"))
+                           for i in range(n)])
+        diffs = [float(np.abs(x.astype(np.float64) -
+                              y.astype(np.float64)).max())
+                 for x, y in zip(*leaves)]
+        out["leaves"] = len(diffs)
+        out["bit_equal"] = all(np.array_equal(x, y)
+                               for x, y in zip(*leaves))
+        out["max_abs_diff"] = max(diffs)
+        if not out["bit_equal"]:
+            fail(f"train resume: B's final checkpoint is not A's bit for "
+                 f"bit (max |Δ| {out['max_abs_diff']:.3e})")
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--bp-slices", action="store_true",
@@ -1943,6 +2364,17 @@ def main() -> None:
     t0 = time.perf_counter()
     parity = family_parity_phase(dev, compare)
     print(json.dumps({"family_parity": parity,
+                      "phase_s": time.perf_counter() - t0}), flush=True)
+
+    # -- 9. training: granite-8b at full width, parity, kill and resume ----
+    t0 = time.perf_counter()
+    print(json.dumps({"train": train_phase(dev, smi),
+                      "phase_s": time.perf_counter() - t0}), flush=True)
+    t0 = time.perf_counter()
+    print(json.dumps({"train_parity": train_parity_phase(dev, smi),
+                      "phase_s": time.perf_counter() - t0}), flush=True)
+    t0 = time.perf_counter()
+    print(json.dumps({"train_resume": train_resume_phase(dev, smi),
                       "phase_s": time.perf_counter() - t0}), flush=True)
 
     keys = ["name", "route", "source", "replaces", "launches",

@@ -33,7 +33,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), float32 or bfloat16,
     contiguous on one CUDA device -> (B, Hq, Sq, D) in q's dtype.  Sk may
-    differ from Sq (cross-attention) only when ``causal`` is false."""
+    differ from Sq (cross-attention) only when ``causal`` is false.
+
+    Raises under autograd (grad enabled and q, k or v requiring grad):
+    the kernel has no backward, so its output would carry no gradient to
+    q, k and v.  Neither has the reference's: its Pallas kernel cannot be
+    differentiated (``pallas_call`` has no transpose rule), and the
+    reference trains with ``use_flash=False``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the kernel has no backward, so its output "
+            "would carry no gradient to q, k and v (the reference's Pallas "
+            "kernel has none either); train with use_flash=False, or call "
+            "it under torch.no_grad()")
     build.require(q, "flash_attention q", _DTYPES, (None,) * 4)
     b, hq, s, d = q.shape
     build.require(k, "flash_attention k", (q.dtype,), (b, None, None, d),

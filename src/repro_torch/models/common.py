@@ -46,8 +46,8 @@ class ModelConfig:
     # numerics / execution
     dtype: Any = torch.bfloat16    # activation/weight compute dtype
     param_dtype: Any = torch.float32
-    remat: bool = True             # a training concern; the port ignores it
-    remat_policy: str = "dots"
+    remat: bool = True             # checkpoint each layer when training
+    remat_policy: str = "dots"     # 'dots' | 'nothing' (models/remat.py)
     seq_shard_fallback: bool = False
     use_flash: bool = False        # the hand-written attention kernel
     norm_eps: float = 1e-5
@@ -101,6 +101,24 @@ class ModelConfig:
 def frozen(t: torch.Tensor) -> nn.Parameter:
     """A weight of an evaluation-only module: no gradient is tracked."""
     return nn.Parameter(t, requires_grad=False)
+
+
+def trainable(module: nn.Module) -> nn.Module:
+    """``module`` as a trainer holds it: every weight tracks its gradient.
+    A trainer also stores its weights in ``cfg.param_dtype`` (see
+    :func:`training_storage`), so an update is never rounded to the
+    compute dtype."""
+    for p in module.parameters():
+        p.requires_grad_(True)
+    return module
+
+
+def training_storage(cfg: ModelConfig) -> ModelConfig:
+    """The config an init stores a trainer's weights with: every weight
+    in ``cfg.param_dtype``, as the reference keeps them.  The forward
+    casts each weight to ``cfg.dtype`` at its use whatever it is stored
+    in, so fp32-stored weights compute what bf16-stored ones do."""
+    return dataclasses.replace(cfg, dtype=cfg.param_dtype)
 
 
 def _norm_cdf(x: float) -> float:

@@ -20,7 +20,12 @@ Every weight keeps its shape (``wq`` (d, H, hd), ``wo`` (H, hd, d), ...),
 so no transpose can go wrong.  Tables stay in ``cfg.param_dtype``; the
 weights the reference keeps and uses in fp32 (the MoE router, Mamba's
 ``A_log``/``dt_bias``/``D``, sLSTM's ``r_gates``) stay fp32; every other
-weight is stored in ``cfg.dtype``.
+weight is stored in ``cfg.dtype`` for serving, and with ``for_training``
+in ``cfg.param_dtype`` (the reference's fp32 values, unrounded) with
+``requires_grad`` set.
+
+``params_to_jax`` goes the other way: the port's tree as the reference's
+layout of numpy arrays (stacked over layers), to compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from torch import nn
 
 from ..device import resolve_device
 from .attention import Attention
-from .common import ModelConfig
+from .common import ModelConfig, trainable, training_storage
 from .mamba2 import MambaBlock
 from .mlp import MLP
 from .moe import MoE
@@ -45,8 +50,14 @@ FP32_LEAVES = ("router", "A_log", "dt_bias", "D", "r_gates")
 
 
 def params_from_jax(params: dict, cfg: ModelConfig,
-                    device: str | torch.device = "cuda") -> nn.Module:
-    """The port's model tree holding ``params``."""
+                    device: str | torch.device = "cuda", *,
+                    for_training: bool = False) -> nn.Module:
+    """The port's model tree holding ``params``; a trainer's
+    (:func:`common.trainable`, every weight in ``cfg.param_dtype``) with
+    ``for_training``."""
+    if for_training:
+        return trainable(params_from_jax(params, training_storage(cfg),
+                                         device))
     dev = resolve_device(device)
     fam = cfg.family
     if fam != "encdec" and ("unembed" in params) == cfg.tie_embeddings:
@@ -171,3 +182,40 @@ def params_from_jax(params: dict, cfg: ModelConfig,
             ln(params["enc_ln_f"]), ln(params["dec_ln_f"]), table("embed"))
 
     raise ValueError(f"unknown family {fam!r}")
+
+
+def params_to_jax(module: nn.Module, cfg: ModelConfig) -> dict:
+    """The port's tree as the reference's: nested dicts of numpy arrays
+    (fp32 for floating weights), each layer leaf stacked over its layers
+    on the leading axes as the reference stacks it; dense/moe/vlm
+    ``layers`` is a tuple with one stack per sub-layer kind of a group."""
+
+    def arr(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+
+    def tree(m):
+        """A module -> {name: array or sub-tree}; a list of modules -> their
+        trees stacked leaf by leaf (nested lists stack nested)."""
+        if isinstance(m, (list, nn.ModuleList)):
+            return _stack([tree(x) for x in m])
+        out = {n: arr(p) for n, p in m.named_parameters(recurse=False)}
+        for n, child in m.named_children():
+            if isinstance(child, nn.ModuleList) and not len(child):
+                continue                       # no tail, no sLSTM
+            if isinstance(m, Block) and n == "ffn":
+                n = "moe" if isinstance(child, MoE) else "mlp"
+            if isinstance(m, LM) and n == "layers":
+                g = len(_group_structure(cfg)[1])
+                out[n] = tuple(tree(list(child[i::g])) for i in range(g))
+            else:
+                out[n] = tree(child)
+        return out
+
+    return tree(module)
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .common import ModelConfig, dense_init
 
@@ -67,8 +68,12 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, dtype
                  ) -> torch.Tensor:
     """Gather rows of the table, in ``dtype``.  Gathering before the cast
     gives the reference's cast-then-gather values without a cast copy of
-    the whole table per call."""
-    return table[tokens.long()].to(dtype)
+    the whole table per call.  ``F.embedding`` rather than indexing: its
+    backward sums a repeated token's gradients in a fixed order, where
+    indexing's (an accumulating ``index_put_``) adds them in whatever
+    order the CPU threads reach them, so a resumed training run could not
+    replay an uninterrupted one bit for bit."""
+    return F.embedding(tokens.long(), table).to(dtype)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,9 @@
 """Unified model API: build_model(cfg) -> Model with init / loss /
 forward / prefill / decode_step / init_cache, dispatching on family.
-``forward`` and ``loss`` evaluate (there is no train step).
+``build_model(cfg, training=True)`` makes ``init`` return a trainer's
+weights: stored in ``cfg.param_dtype`` and tracking their gradients
+(``training/train_step.py`` differentiates ``loss``); the forward is the
+same either way.
 
 Batch conventions (numpy arrays or tensors):
   dense/moe/ssm/hybrid : {tokens (B,S), labels (B,S)}
@@ -24,7 +27,7 @@ from torch import nn
 
 from ..device import resolve_device
 from .attention import init_cache as init_kv_cache
-from .common import ModelConfig
+from .common import ModelConfig, trainable, training_storage
 from .layers import embed_tokens
 from .transformer import (init_lm, lm_decode_step, lm_forward, lm_prefill,
                           lm_prefill_embeds)
@@ -49,6 +52,7 @@ class Model:
     decode_step: Callable[[nn.Module, torch.Tensor, Any],
                           tuple[torch.Tensor, Any]]
     init_cache: Callable[..., Any]
+    training: bool = False
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
@@ -74,10 +78,12 @@ _RECURRENT = {
 }
 
 
-def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
-                ) -> Model:
+def build_model(cfg: ModelConfig, device: str | torch.device = "cuda", *,
+                training: bool = False) -> Model:
     """The model of ``cfg`` on ``device`` (the card unless the caller
-    asks for the CPU; raises when the card is asked for and absent)."""
+    asks for the CPU; raises when the card is asked for and absent).
+    With ``training``, ``init`` stores every weight in ``cfg.param_dtype``
+    and sets ``requires_grad``."""
     dev = resolve_device(device)
     fam = cfg.family
     if fam not in ("dense", "moe", "vlm", "ssm", "hybrid", "encdec"):
@@ -91,6 +97,8 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
             if generator.device.type != dev.type:
                 raise ValueError(f"init: generator on {generator.device}, "
                                  f"model on {dev}")
+            if training:
+                return trainable(fn(generator, training_storage(cfg)))
             return fn(generator, cfg)
         return init
 
@@ -126,7 +134,7 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
 
         return Model(cfg, dev, on_device(init_lm), forward,
                      loss_of(forward, AUX_WEIGHT), prefill, decode_step,
-                     init_cache)
+                     init_cache, training)
 
     if fam in _RECURRENT:       # xLSTM, Zamba2
         init_fn, forward_fn, decode_fn = _RECURRENT[fam]
@@ -148,7 +156,8 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
             return decode_fn(params, cfg, tensor(token), cache)
 
         return Model(cfg, dev, on_device(init_fn), forward,
-                     loss_of(forward, 0.0), prefill, decode_step, init_cache)
+                     loss_of(forward, 0.0), prefill, decode_step, init_cache,
+                     training)
 
     # encdec: Whisper
     def frames(batch: dict) -> torch.Tensor:
@@ -175,4 +184,5 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
         return init_whisper_cache(cfg, batch_size, max_len, device=dev)
 
     return Model(cfg, dev, on_device(init_whisper), forward,
-                 loss_of(forward, 0.0), prefill, decode_step, init_cache)
+                 loss_of(forward, 0.0), prefill, decode_step, init_cache,
+                 training)

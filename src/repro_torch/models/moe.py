@@ -132,10 +132,10 @@ def _moe_dispatch(params: MoE, x: torch.Tensor, cfg: ModelConfig
     buf = buf[:, :capacity]
 
     # the expert FFN: three batched products over the experts
-    gate = torch.bmm(buf, params.w_gate)
-    up = torch.bmm(buf, params.w_up)
+    gate = torch.bmm(buf, params.w_gate.to(dt))
+    up = torch.bmm(buf, params.w_up.to(dt))
     act = F.silu(gate.float()).to(dt) * up
-    out_buf = torch.bmm(act, params.w_down)
+    out_buf = torch.bmm(act, params.w_down.to(dt))
 
     # combine: the gather clamps into range; dropped choices give zero
     gathered = out_buf[flat_ids, safe.clamp(0, capacity - 1)]

@@ -5,14 +5,19 @@ the layers are an ``nn.ModuleList`` walked by a Python loop, in the
 reference's order (group by group, sub-layer by sub-layer), so the KV
 cache's leading axis means the same layer in both.  MoE interleaving
 (llama4's alternate dense/MoE) follows the reference's groups of
-``moe_every`` sub-layers, the last of each group MoE.  Block weights and
-norm scales are stored in ``cfg.dtype`` once, at init or load: that is
-what every per-use cast of the reference computes, at half the memory
-in bf16.  The embedding and unembedding tables stay in
-``cfg.param_dtype`` (fp32).  Rematerialisation is a training concern
-and ``cfg.remat`` is ignored.
+``moe_every`` sub-layers, the last of each group MoE.  For serving,
+block weights and norm scales are stored in ``cfg.dtype`` once, at init
+or load: that is what every per-use cast of the reference computes, at
+half the memory in bf16.  A trainer stores them in ``cfg.param_dtype``
+as the reference does (``common.training_storage``); every use casts to
+``cfg.dtype`` either way.  The embedding and unembedding tables stay in
+``cfg.param_dtype`` (fp32).  In training each group of sub-layers is
+rematerialised as ``cfg.remat`` asks (``remat.py``), as the reference's
+scan body is.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -24,6 +29,7 @@ from .kernels_glue import flash_attention
 from .layers import embed_tokens, init_embedding, rms_norm, unembed
 from .mlp import MLP, init_mlp, mlp_fwd
 from .moe import MoE, init_moe, moe_fwd
+from .remat import remat
 
 
 class Block(nn.Module):
@@ -108,14 +114,27 @@ def lm_forward(params: LM, cfg: ModelConfig, *,
         x = embeds.to(cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for sub in params.layers:
+    g = len(_group_structure(cfg)[1])
+    step = remat(functools.partial(_group_fwd, cfg=cfg), cfg)
+    for i in range(0, len(params.layers), g):
+        x, a = step(x, positions, list(params.layers[i:i + g]))
+        aux = aux + a
+    x = rms_norm(x, params.ln_f.to(cfg.dtype), cfg.norm_eps)
+    return unembed(params.out_table, x), aux
+
+
+def _group_fwd(x: torch.Tensor, positions: torch.Tensor, subs: list[Block],
+               cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """One group of sub-layers (the reference's scan body) -> (x, the
+    group's MoE aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for sub in subs:
         h = rms_norm(x, sub.ln1.to(cfg.dtype), cfg.norm_eps)
         x = x + attention_fwd(sub.attn, h, cfg, positions=positions)
         x, a = _ffn(sub, x, cfg)
         if a is not None:
             aux = aux + a
-    x = rms_norm(x, params.ln_f.to(cfg.dtype), cfg.norm_eps)
-    return unembed(params.out_table, x), aux
+    return x, aux
 
 
 # ----------------------------------------------------------------------

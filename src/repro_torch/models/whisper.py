@@ -27,6 +27,7 @@ from .common import ModelConfig, frozen
 from .kernels_glue import flash_attention
 from .layers import embed_tokens, init_embedding, layer_norm, unembed
 from .mlp import MLP, init_mlp, mlp_fwd
+from .remat import remat
 
 
 @functools.lru_cache(maxsize=8)
@@ -121,11 +122,16 @@ def encode(params: Whisper, cfg: ModelConfig, frames: torch.Tensor
     dt = cfg.dtype
     x = frames.to(dt)
     x = x + _positions(x.shape[1], x.shape[2], x)[None]
-    for layer in params.enc_layers:
+
+    def body(x, layer):
         h = _ln(x, layer.ln1, cfg.norm_eps, dt)
         x = x + attention_fwd(layer.attn, h, cfg, causal=False)
         h = _ln(x, layer.ln2, cfg.norm_eps, dt)
-        x = x + mlp_fwd(layer.mlp, h, dt, activation="gelu")
+        return x + mlp_fwd(layer.mlp, h, dt, activation="gelu")
+
+    step = remat(body, cfg)
+    for layer in params.enc_layers:
+        x = step(x, layer)
     return _ln(x, params.enc_ln_f, cfg.norm_eps, dt)
 
 
@@ -140,13 +146,18 @@ def whisper_forward(params: Whisper, cfg: ModelConfig, *,
     dt = cfg.dtype
     ctx = encode(params, cfg, frames)
     x = _embed(params, tokens, dt)
-    for layer in params.dec_layers:
+
+    def body(x, ctx, layer):
         h = _ln(x, layer.ln1, cfg.norm_eps, dt)
         x = x + attention_fwd(layer.attn, h, cfg, causal=True)
         h = _ln(x, layer.ln_x, cfg.norm_eps, dt)
         x = x + attention_fwd(layer.xattn, h, cfg, kv_override=(ctx,))
         h = _ln(x, layer.ln2, cfg.norm_eps, dt)
-        x = x + mlp_fwd(layer.mlp, h, dt, activation="gelu")
+        return x + mlp_fwd(layer.mlp, h, dt, activation="gelu")
+
+    step = remat(body, cfg)
+    for layer in params.dec_layers:
+        x = step(x, ctx, layer)
     x = _ln(x, params.dec_ln_f, cfg.norm_eps, dt)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params.embed, x), aux

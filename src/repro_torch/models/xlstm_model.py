@@ -12,6 +12,7 @@ from torch import nn
 
 from .common import ModelConfig, frozen
 from .layers import embed_tokens, init_embedding, rms_norm, unembed
+from .remat import remat
 from .xlstm import (MLSTMBlock, MLSTMCache, SLSTMBlock, SLSTMCache,
                     init_mlstm_block, init_mlstm_cache, init_slstm_block,
                     init_slstm_cache, mlstm_fwd, mlstm_step, slstm_fwd,
@@ -77,11 +78,17 @@ def xlstm_forward(params: XLSTM, cfg: ModelConfig, *,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     x = (embed_tokens(params.embed, tokens, cfg.dtype)
          if embeds is None else embeds.to(cfg.dtype))
-    for mls, sls in _groups(params):
+
+    def body(x, mls, sls):
         for layer in mls:
             x = x + mlstm_fwd(layer, x, cfg)
         if sls is not None:
             x = x + slstm_fwd(sls, x, cfg)
+        return x
+
+    step = remat(body, cfg)
+    for mls, sls in _groups(params):
+        x = step(x, mls, sls)
     x = rms_norm(x, params.ln_f.to(cfg.dtype), cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params.out_table, x), aux

@@ -23,6 +23,7 @@ from .layers import embed_tokens, init_embedding, rms_norm, unembed
 from .mamba2 import (MambaBlock, MambaCache, init_mamba_block,
                      init_mamba_cache, mamba_fwd, mamba_step)
 from .mlp import MLP, init_mlp, mlp_fwd
+from .remat import remat
 
 
 def _layout(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -87,10 +88,15 @@ def zamba_forward(params: Zamba, cfg: ModelConfig, *,
     x = (embed_tokens(params.embed, tokens, cfg.dtype)
          if embeds is None else embeds.to(cfg.dtype))
     positions = torch.arange(x.shape[1], device=x.device)
-    for group in params.groups:
+
+    def group_body(x, group):
         for layer in group:
             x = x + mamba_fwd(layer, x, cfg)
-        x = _shared_block(params, x, cfg, positions)
+        return _shared_block(params, x, cfg, positions)
+
+    step = remat(group_body, cfg)       # the tail is not, as in the reference
+    for group in params.groups:
+        x = step(x, group)
     for layer in params.tail:
         x = x + mamba_fwd(layer, x, cfg)
     x = rms_norm(x, params.ln_f.to(cfg.dtype), cfg.norm_eps)

@@ -2,7 +2,8 @@
 continuous-batching scheduler (slot-based, host-driven).
 
 ``serve_step`` is one batched single-token decode against a full KV
-cache.  The cache's tensors are updated in place.
+cache.  The cache's tensors are updated in place.  Serving tracks no
+gradient, so a trainer's weights (``requires_grad``) serve as they are.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from ..models.model_zoo import Model
 def make_serve_step(model: Model) -> Callable:
     """serve_step(params, token (B,1) int32, cache) -> (token', cache)."""
 
+    @torch.no_grad()
     def serve_step(params, token, cache):
         logits, cache = model.decode_step(params, token, cache)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
@@ -27,6 +29,7 @@ def make_serve_step(model: Model) -> Callable:
     return serve_step
 
 
+@torch.no_grad()
 def greedy_generate(model: Model, params, batch: dict, *, max_new: int,
                     max_len: int) -> np.ndarray:
     """Prefill the prompt then decode ``max_new`` tokens greedily."""
@@ -85,6 +88,7 @@ class ContinuousBatcher:
                 self.tokens[slot, 0] = first
                 self.cache = _splice_cache(self.cache, c1, slot)
 
+    @torch.no_grad()
     def run(self) -> list[Request]:
         """Admit, then one batched decode step, then collect the tokens,
         until every request is done."""

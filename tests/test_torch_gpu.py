@@ -751,3 +751,92 @@ def test_two_workers_build_into_one_empty_directory(cuda, tmp_path):
     finally:
         _stop_workers(workers)
         svc.stop()
+
+
+# ------------------------------------------------------------ training
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen3-moe-235b-a22b",
+                                  "xlstm-1.3b"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """Two train steps of a smoke model (fp32) on the card against the
+    same steps on the CPU from the same weights: loss and grad_norm
+    within rtol 1e-4; each updated leaf within rtol 1e-4 and atol 1e-2 ·
+    lr per step where the first gradient is >= 1e-4 of its leaf's max or
+    is 0 on both sides (weight decay alone), and within 0.25 · lr per
+    step elsewhere (see tests/test_torch_training.py)."""
+    import copy
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.training import init_training, make_train_step
+    cfg = get_config(arch, smoke=True)
+    cpu_model = build_model(cfg, "cpu", training=True)
+    card_model = build_model(cfg, cuda, training=True)
+    params, opt = init_training(cpu_model, torch.Generator().manual_seed(0))
+    card_params = copy.deepcopy(params).to(cuda)
+    card_opt = init_opt_state(card_params)
+    batch = smoke_batch(cfg, batch=2, seq=16, seed=3)
+    grads = []
+    for model, ps in ((cpu_model, params), (card_model, card_params)):
+        model.loss(ps, batch).backward()
+        grads.append({n: p.grad.abs().cpu() for n, p in ps.named_parameters()})
+        for p in ps.parameters():
+            p.grad = None
+    steps = 2
+    for _ in range(steps):
+        params, opt, m = make_train_step(cpu_model, AdamWConfig(**TRAIN_OPT))(
+            params, opt, batch)
+        card_params, card_opt, cm = make_train_step(
+            card_model, AdamWConfig(**TRAIN_OPT))(card_params, card_opt,
+                                                  batch)
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(cm[k]), float(m[k]), rtol=1e-4)
+    lr = TRAIN_OPT["lr"]
+    for (n, a), b in zip(params.named_parameters(),
+                         card_params.parameters()):
+        a, b = a.detach().numpy(), b.detach().cpu().numpy()
+        g, cg = grads[0][n], grads[1][n]
+        held = ((g >= 1e-4 * g.max()) | ((g == 0) & (cg == 0))).numpy()
+        np.testing.assert_allclose(b[held], a[held], rtol=1e-4,
+                                   atol=1e-2 * lr * steps, err_msg=n)
+        assert np.abs(a - b).max() <= 0.25 * lr * steps, n
+
+
+def test_flash_kernel_raises_under_autograd_on_card(cuda):
+    q = torch.randn((1, 2, 64, 64), device=cuda, requires_grad=True)
+    kv = torch.randn((1, 2, 64, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_cuda(q, kv, kv)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention(q, kv, kv, use_pallas=True)
+    with torch.no_grad():
+        n = flash_attention_cuda.launches
+        assert attention(q, kv, kv, use_pallas=True).shape == q.shape
+        assert flash_attention_cuda.launches == n + 1
+
+
+def test_remat_saves_fewer_bytes_on_card(cuda):
+    """What a forward leaves allocated for its backward: remat 'dots'
+    (products without batch dims saved) holds less than remat off, and
+    'nothing' (layer inputs only) less than 'dots'."""
+    import dataclasses
+    from repro_torch.training import init_training
+    base = dataclasses.replace(get_config("granite-8b", smoke=True),
+                               d_model=256, n_heads=4, n_kv_heads=2,
+                               head_dim=64, d_ff=1024)
+    batch = smoke_batch(base, batch=2, seq=256, seed=3)
+    held = {}
+    for name, over in [("off", dict(remat=False)),
+                       ("dots", dict(remat=True, remat_policy="dots")),
+                       ("nothing", dict(remat=True, remat_policy="nothing"))]:
+        cfg = dataclasses.replace(base, **over)
+        model = build_model(cfg, cuda, training=True)
+        params, _ = init_training(model, torch.Generator(cuda).manual_seed(0))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        loss = model.loss(params, batch)
+        torch.cuda.synchronize()
+        held[name] = torch.cuda.memory_allocated() - before
+        loss.backward()
+        del loss, params
+    assert held["nothing"] < held["dots"] < held["off"], held

@@ -18,12 +18,13 @@ from repro_torch.core import ChunkedFileTransport, InMemoryTransport, \
 from repro_torch.configs import get_config
 from repro_torch.kernels.backproject.ops import backproject
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.launch import pipeline_serve, serve
+from repro_torch.launch import pipeline_serve, serve, train
 from repro_torch.models import build_model
 from repro_torch.service import (JobQueue, PipelineClient,
                                  PipelineScheduler, PipelineService)
 from repro_torch.service.worker import main as worker_main
 from repro_torch.service.worker import spawn_local_workers
+from repro_torch.training import init_training
 from repro_torch.tomo import ParallelGeometry, forward_project, \
     standard_chain
 
@@ -85,7 +86,10 @@ def test_port_imports_with_jax_and_reference_blocked():
                     "repro_torch.service.scheduler",
                     "repro_torch.kernels.build", "repro_torch.obs.slo",
                     "repro_torch.obs.export", "repro_torch.kernels.tally",
-                    "repro_torch.launch.pipeline_serve", *ops]],
+                    "repro_torch.launch.pipeline_serve",
+                    "repro_torch.optim", "repro_torch.data",
+                    "repro_torch.distributed", "repro_torch.models.remat",
+                    "repro_torch.launch.train", *ops]],
         "print('imported')"])
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -126,13 +130,19 @@ def test_runner_without_transport_needs_the_card(no_cuda):
     *[lambda a=a: build_model(get_config(a, smoke=True)) for a in FAMILIES],
     *[lambda a=a: serve.main(["--arch", a, "--smoke", "--requests", "1"])
       for a in FAMILIES],
+    lambda: build_model(get_config("granite-8b", smoke=True),
+                        training=True),
+    lambda: init_training(build_model(get_config("granite-8b", smoke=True),
+                                      training=True), None),
+    lambda: train.main(["--steps", "1"]),
 ], ids=["resolve_device", "inmemory", "chunked", "forward_project",
         "build_model", "serve", "scheduler", "pipeline_serve",
         "pipeline_service", "client_ingest_synthetic", "worker_main",
         "spawn_local_workers", "pipeline_service_broker",
         "pipeline_serve_workers_remote",
         *[f"build_model_{a}" for a in FAMILIES],
-        *[f"serve_{a}" for a in FAMILIES]])
+        *[f"serve_{a}" for a in FAMILIES],
+        "build_model_training", "init_training", "launch_train"])
 def test_entry_points_default_to_the_card(no_cuda, make):
     with pytest.raises(RuntimeError, match="cpu"):
         make()
