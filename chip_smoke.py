@@ -168,6 +168,30 @@ Phases, each fatal on failure:
       ``step_19`` is published and restarted: it resumes at step 20, and
       its final checkpoint must equal the uninterrupted run's bit for
       bit.
+10. the distributed modules and the roofline (``{"compression": ...}``,
+    ``{"roofline": ...}`` and ``{"dryrun": ...}`` lines, each with the
+    card's name and power limit):
+   a. ``distributed.compressed_psum`` over a one-rank NCCL group
+      (``init_device_mesh("cuda", (1,), ("pod",))``) on a (4096, 14336)
+      fp32 tensor, granite-8b's ``w_up``: it must equal quantise →
+      dequantise on the card and on the CPU bit for bit; its time by
+      CUDA events;
+   b. ``roofline.Counter`` around granite-8b FULL's prefill of one
+      2048-token request (the flash kernel launched, its work through
+      its ``cost()``) and around phase 3's chain on phase 3's scan (the
+      three tomography kernels launched): counted flops and bytes,
+      ``compute_s``, ``memory_s``, the bottleneck, the measured time
+      (host clock, synchronised, median of 3) and measured / bound.
+      The prefill's counted flops must be within 1 % of its products
+      (``launch.dryrun.model_flops``: 2·N·T with N without the tables,
+      plus the last position's logits) plus the flash kernel's
+      ``cost()`` flops, else the phase fails;
+   c. on the host: ``launch.dryrun.ladder`` for granite-8b ``train_4k``
+      on the fake 16 x 16 mesh, depth cut to ``DRYRUN_DEPTH`` of 36
+      (each layer costs ~14 s of tracing), and ``launch.dryrun_tomo``
+      at 3072 x 2048 x 2048: ``peak_estimate`` per device beside the
+      card's ``total_memory``, the ladder's final knobs, the roofline
+      terms.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (the
 correction row also gives the gang launch, ``batched_*``, and the
@@ -179,8 +203,8 @@ last line is ``{"ok": true, "device": {...}}``.  Phases 3a-3e print one
 ``{"flash_attention_families": [...]}`` line, phases 7 and 8 one
 ``{"families": ...}`` and one ``{"family_parity": ...}`` line, phase 9
 one ``{"train": ...}``, ``{"train_parity": ...}`` and
-``{"train_resume": ...}`` line, each with the card's name and power
-limit.
+``{"train_resume": ...}`` line, phase 10 its three lines, each with the
+card's name and power limit.
 Every bound is computed from the kernels' own ``cost()`` counts, the
 numbers the service's process spans carry.  Without a CUDA device,
 or without the repository's ``src/repro_torch`` beside this file, it
@@ -305,6 +329,13 @@ TRAIN = {"arch": "granite-8b", "seq": 4096, "batch": 8, "microbatch": 8,
 #: share of the free device memory the depth estimate leaves to the
 #: allocator (fragmentation, the optimizer's per-leaf temporaries)
 TRAIN_MARGIN = 0.10
+#: phase 10a: compressed_psum on granite-8b's w_up, (d_model, d_ff) fp32
+COMPRESS_SHAPE = (4096, 14336)
+#: phase 10b: the counted prefill's flops against the products it needs
+PREFILL_FLOPS_RTOL = 0.01
+#: phase 10c: granite-8b train_4k traced on the fake 16 x 16 mesh at this
+#: depth (of 36): each layer costs ~14 s of host time (8 microbatches)
+DRYRUN_DEPTH = 2
 #: phase 9b: train steps of each smoke config, card against CPU
 TRAIN_PARITY_STEPS = 2
 #: phase 9c: launch.train killed once step_<kill_after> is published
@@ -1552,6 +1583,193 @@ def train_resume_phase(dev, smi: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 10: compression, the roofline counter, the dry-runs
+def compression_phase(dev, smi: str) -> dict:
+    """10a: ``compressed_psum`` over a one-rank NCCL group on the card,
+    bit for bit against quantise → dequantise on the card and on the
+    CPU."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import (compressed_psum, dequantise_int8,
+                                         quantise_int8)
+
+    x = torch.randn(COMPRESS_SHAPE, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+
+    def roundtrip(t):
+        return dequantise_int8(*quantise_int8(t), t.numel(), tuple(t.shape))
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+        got = compressed_psum(x, mesh, axis="pod")
+        card = roundtrip(x)
+        cpu = roundtrip(x.cpu())
+        bit_card = torch.equal(got.view(torch.int32), card.view(torch.int32))
+        bit_cpu = torch.equal(got.cpu().view(torch.int32),
+                              cpu.view(torch.int32))
+        if not (bit_card and bit_cpu):
+            fail(f"compressed_psum: bit for bit against the card's "
+                 f"round trip {bit_card}, against the CPU's {bit_cpu}")
+        psum_ms = cuda_ms(lambda: compressed_psum(x, mesh, axis="pod"), 10)
+        roundtrip_ms = cuda_ms(lambda: roundtrip(x), 10)
+    finally:
+        dist.destroy_process_group()
+    err = float((got - x).abs().max())
+    return {"card": smi, "shape": list(COMPRESS_SHAPE), "dtype": "float32",
+            "group": "nccl, 1 rank", "bit_equal_card": bit_card,
+            "bit_equal_cpu": bit_cpu, "max_abs_err_vs_input": err,
+            "ms": psum_ms, "roundtrip_ms": roundtrip_ms}
+
+
+def roofline_phase(dev, smi: str, scan) -> dict:
+    """10b: the roofline counter around granite-8b's full-width prefill
+    of one 2048-token request (the flash kernel launched) and around
+    phase 3's chain (the three tomography kernels launched), beside the
+    measured time."""
+    import torch
+
+    from repro_torch.configs import CellSpec, get_config
+    from repro_torch.core import PluginRunner
+    from repro_torch.kernels.backproject.kernel import backproject_cuda
+    from repro_torch.kernels.correction.kernel import correct_cuda
+    from repro_torch.kernels.flash_attention.kernel import (
+        cost as flash_cost, flash_attention_cuda)
+    from repro_torch.kernels.sino_filter.kernel import scale_spectrum_cuda
+    from repro_torch.launch.dryrun import model_flops
+    from repro_torch.models import build_model
+    from repro_torch.roofline import Counter, analyse
+    from repro_torch.tomo import standard_chain
+
+    def counted(fn, wrappers):
+        before = [w.launches for w in wrappers]
+        with Counter() as cnt:
+            fn()
+            torch.cuda.synchronize(dev)
+        return cnt, [w.launches - b for w, b in zip(wrappers, before)]
+
+    def wall_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    def terms(cnt, ms, **extra):
+        roof = analyse(cnt, n_devices=1, **extra)
+        bound = max(roof.compute_s, roof.memory_s) * 1e3
+        return {"flops": cnt.flops, "bytes": cnt.bytes,
+                "compute_s": roof.compute_s, "memory_s": roof.memory_s,
+                "bottleneck": roof.bottleneck, "measured_ms": ms,
+                "bound_ms": bound, "measured_over_bound": ms / bound}
+
+    # granite-8b FULL, one request of SERVE's prompt length
+    cfg = dataclasses.replace(get_config(SERVE["arch"]), use_flash=True)
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    s = SERVE["prompt_len"]
+    batch = {"tokens": np.random.default_rng(3).integers(0, cfg.vocab,
+                                                         (1, s))}
+
+    def prefill():
+        return model.prefill(params, batch, SERVE["max_len"])
+
+    prefill()
+    cnt, (n_flash,) = counted(prefill, [flash_attention_cuda])
+    if n_flash != cfg.n_layers:
+        fail(f"roofline prefill: {n_flash} flash launches, expected "
+             f"{cfg.n_layers}")
+    attn = cfg.n_layers * flash_cost(1, cfg.n_heads, cfg.n_kv_heads, s,
+                                     cfg.hd, 2)["flops"]
+    products = model_flops(cfg, CellSpec(SERVE["arch"], "prefill", "prefill",
+                                         {}, s, 1))
+    want = products + attn
+    rel = abs(cnt.flops - want) / want
+    if rel > PREFILL_FLOPS_RTOL:
+        fail(f"roofline prefill: counted {cnt.flops:.6e} flops, expected "
+             f"{want:.6e} (2·N·T {products:.6e} + attention {attn:.6e}): "
+             f"{rel:.2%} off")
+    prefill_row = {**terms(cnt, wall_ms(prefill), model_flops=products),
+                   "expected_flops": want, "flops_rel_err": rel,
+                   "flash_launches": n_flash}
+    del model, params
+    torch.cuda.empty_cache()
+
+    # phase 3's chain on phase 3's scan
+    def chain():
+        pl = standard_chain(**MAIN)
+        pl.entries[0].params["scan"] = scan
+        return PluginRunner(pl).run()
+
+    chain()
+    wrappers = [correct_cuda, scale_spectrum_cuda, backproject_cuda]
+    cnt, launched = counted(chain, wrappers)
+    if min(launched) < 1:
+        fail(f"roofline chain: kernel launches {launched}")
+    chain_row = {**terms(cnt, wall_ms(chain)),
+                 "launches": dict(zip(("correction", "spectrum_scale",
+                                       "backprojection"), launched))}
+    return {"card": smi, "prefill": prefill_row, "chain": chain_row}
+
+
+def dryrun_phase(smi: str) -> dict:
+    """10c: granite-8b ``train_4k`` down the memory ladder and the
+    tomography chain, on the fake 16 x 16 mesh, on the host."""
+    import torch
+
+    from repro_torch.launch import dryrun, dryrun_tomo
+    from repro_torch.launch.mesh import production_mesh
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    t0 = time.perf_counter()
+    with production_mesh() as mesh:
+        rec = dryrun.ladder("granite-8b", "train_4k", mesh,
+                            n_layers=DRYRUN_DEPTH)
+        t_lm = time.perf_counter() - t0
+        tomo = dryrun_tomo.lower_chain(mesh)
+    # the one property the chain's dry-run must keep: each PROJECTION ->
+    # SINOGRAM transition is one all-to-all, as the reference lowers it
+    if (tomo["transitions"] != 1 or tomo["comm_counts"]
+            != {"_dtensor.shard_dim_alltoall": 1}):
+        fail(f"dryrun_tomo: {tomo['transitions']} transitions, "
+             f"collectives {tomo['comm_counts']}; want one all-to-all")
+    if rec["memory"]["peak_estimate"] > total:
+        fail(f"dryrun granite-8b train_4k: peak_estimate "
+             f"{rec['memory']['peak_estimate']} > the card's {total}")
+
+    def roof(r):
+        return {k: r["roofline"][k] for k in (
+            "compute_s", "memory_s", "collective_s", "bottleneck",
+            "useful_ratio", "coll_detail")}
+
+    return {
+        "card": smi, "total_memory": total,
+        "granite_8b_train_4k": {
+            "mesh": rec["mesh"], "n_layers": rec["n_layers"],
+            "depth_cut_from": 36, "peak_estimate": rec["memory"][
+                "peak_estimate"], "microbatch": rec["microbatch"],
+            "remat_policy": rec["remat_policy"], "moments": rec["moments"],
+            "comm_counts": rec["comm_counts"], **roof(rec),
+            "trace_s": t_lm},
+        "tomo_chain": {
+            "tag": tomo["tag"], "peak_estimate": tomo["memory"][
+                "peak_estimate"], "transitions": tomo["transitions"],
+            "comm_counts": tomo["comm_counts"], **roof(tomo)},
+        "phase_s": time.perf_counter() - t0}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--bp-slices", action="store_true",
@@ -1894,6 +2112,7 @@ def main() -> None:
     if missing:
         fail(f"main path launched no {missing} kernel")
     recon3 = recon = out["recon"].backing
+    scan3 = scan                     # phase 10b counts the chain on it
     if not isinstance(recon, torch.Tensor) or recon.device.type != "cuda":
         fail(f"recon is not a CUDA tensor: {type(recon)}")
     want = (n_rows, n_det, n_det)
@@ -2376,6 +2595,17 @@ def main() -> None:
     t0 = time.perf_counter()
     print(json.dumps({"train_resume": train_resume_phase(dev, smi),
                       "phase_s": time.perf_counter() - t0}), flush=True)
+
+    # -- 10. compression, the roofline counter, the dry-runs ---------------
+    t0 = time.perf_counter()
+    print(json.dumps({"compression": compression_phase(dev, smi),
+                      "phase_s": time.perf_counter() - t0}), flush=True)
+    t0 = time.perf_counter()
+    print(json.dumps({"roofline": roofline_phase(dev, smi, scan3),
+                      "phase_s": time.perf_counter() - t0}), flush=True)
+    del scan3
+    torch.cuda.empty_cache()
+    print(json.dumps({"dryrun": dryrun_phase(smi)}), flush=True)
 
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

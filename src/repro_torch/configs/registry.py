@@ -1,15 +1,17 @@
-"""Architecture registry + assigned input shapes.
+"""Architecture registry + assigned input shapes + input_specs().
 
 The 10 assigned architectures (× 4 shapes = 40 nominal cells).  Cells
 mandated skipped: long_500k for the 8 pure-full-attention archs (needs
 sub-quadratic attention) — it runs only for xlstm-1.3b and zamba2-1.2b.
-The dry-run's ``input_specs``/``CellSpec`` wait for the dry-run's port.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
+from typing import Any, NamedTuple
 
 import numpy as np
+import torch
 
 from ..models.common import ModelConfig
 
@@ -63,6 +65,67 @@ def all_cells(include_skipped: bool = False
             if ok or include_skipped:
                 out.append((a, s, ok, why))
     return out
+
+
+# ----------------------------------------------------------------------
+class TensorSpec(NamedTuple):
+    """A step input's shape and dtype: what a fake tensor is made from
+    (``torch.empty(spec.shape, dtype=spec.dtype)`` under a fake-tensor
+    mode); allocates nothing."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class CellSpec:
+    arch_id: str
+    shape_name: str
+    kind: str                   # train | prefill | decode
+    batch: dict[str, Any]       # TensorSpecs for the step inputs
+    seq_len: int
+    global_batch: int
+    notes: str = ""
+
+
+def input_specs(arch_id: str, shape_name: str, *,
+                cfg: ModelConfig | None = None) -> CellSpec:
+    """(shape, dtype) stand-ins for every model input of a cell — no
+    device allocation."""
+    cfg = cfg or get_config(arch_id)
+    seq, gb, kind = SHAPES[shape_name]
+    fam = cfg.family
+    i32 = torch.int32
+
+    if kind in ("train", "prefill"):
+        if fam == "encdec":
+            t = cfg.max_frames or 1500
+            batch = {
+                "frames": TensorSpec((gb, t, cfg.d_model), torch.bfloat16),
+                "tokens": TensorSpec((gb, seq), i32),
+                "labels": TensorSpec((gb, seq), i32),
+            }
+        elif fam == "vlm":
+            from .llava_next_34b import PATCH_TOKENS
+            pt = min(PATCH_TOKENS, seq // 2)
+            batch = {
+                "tokens": TensorSpec((gb, seq - pt), i32),
+                "patches": TensorSpec((gb, pt, cfg.d_model),
+                                      torch.bfloat16),
+                "labels": TensorSpec((gb, seq), i32),
+            }
+        else:
+            batch = {
+                "tokens": TensorSpec((gb, seq), i32),
+                "labels": TensorSpec((gb, seq), i32),
+            }
+        if kind == "prefill":
+            batch.pop("labels")
+        return CellSpec(arch_id, shape_name, kind, batch, seq, gb)
+
+    # decode: one new token against a seq-long cache
+    batch = {"token": TensorSpec((gb, 1), i32)}
+    return CellSpec(arch_id, shape_name, "decode", batch, seq, gb,
+                    notes="cache from model.init_cache under the mesh")
 
 
 def smoke_batch(cfg: ModelConfig, *, batch: int = 2, seq: int = 16,

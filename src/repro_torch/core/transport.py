@@ -30,6 +30,7 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
@@ -224,7 +225,9 @@ class _PeakMemory(TorchDispatchMode):
     that existed before (an input, or what a view of it shares) never
     counts, nor does what a library op allocates and frees inside itself
     (cuFFT's work area).  Dispatch modes are per thread, so what other
-    threads allocate meanwhile never enters the reading."""
+    threads allocate meanwhile never enters the reading.  Ops on DTensors
+    are deferred to DTensor, so the reading is of the local shards (the
+    dry-run's per-device memory)."""
 
     def __init__(self, device: torch.device):
         super().__init__()
@@ -234,6 +237,8 @@ class _PeakMemory(TorchDispatchMode):
         self.peak = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(isinstance(t, DTensor) for t in tree_leaves((args, kwargs))):
+            return NotImplemented      # read the local shards beneath it
         for cdata, (ref, n) in list(self._seen.items()):
             if ref.expired():
                 del self._seen[cdata]

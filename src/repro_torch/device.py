@@ -42,11 +42,19 @@ def probe() -> dict[str, Any]:
     }
 
 
+def _fake_mode():
+    from torch._guards import detect_fake_mode
+    return detect_fake_mode()
+
+
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """``device`` as a :class:`torch.device`; raises when a CUDA device
-    is asked for and this host has none."""
+    is asked for and this host has none.  Under a fake-tensor mode (the
+    dry-runs, ``launch.mesh.fake_tensors``) nothing is allocated, so the
+    card's device type is accepted without a card."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if (dev.type == "cuda" and not torch.cuda.is_available()
+            and _fake_mode() is None):
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
             f"is False (torch {torch.__version__}, CUDA "

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.sharding import distribute
+
 
 def _leaves(tree: Any, path: str = "") -> Iterator[tuple[str, torch.Tensor]]:
     """(path, tensor) of every leaf, in a fixed order."""
@@ -56,8 +58,15 @@ def _rebuild(tree: Any, it: Iterator[torch.Tensor]) -> Any:
         return next(it)
     if isinstance(tree, nn.Module):
         with torch.no_grad():
-            for _, p in tree.named_parameters():
-                p.data = next(it)
+            for name, p in list(tree.named_parameters()):
+                x = next(it)
+                if type(x) is type(p.data):
+                    p.data = x
+                else:               # a DTensor in place of a tensor
+                    owner, _, leaf = name.rpartition(".")
+                    mod = tree.get_submodule(owner) if owner else tree
+                    setattr(mod, leaf, nn.Parameter(
+                        x, requires_grad=p.requires_grad))
         return tree
     if isinstance(tree, dict):
         out = {k: _rebuild(tree[k], it) for k in sorted(tree)}
@@ -163,11 +172,21 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template: Any, *, step: int | None = None,
-                device: str | torch.device | None = None
+                device: str | torch.device | None = None,
+                mesh: Any = None, shardings: dict | None = None
                 ) -> tuple[Any, dict]:
         """Restore into the structure of ``template``: each leaf on the
         template leaf's device (``device`` when given) in its dtype.  A
-        module in the template gets its parameters refilled in place."""
+        module in the template gets its parameters refilled in place.
+
+        ``shardings`` (leaf path -> DTensor placements, as
+        ``param_shardings`` gives them for a module; a dict template's
+        paths are its keys joined by ``/``) re-shards elastically onto
+        ``mesh``, a ``DeviceMesh``: each leaf it names becomes a DTensor
+        holding this rank's slice, on the mesh's device type."""
+        if shardings is not None and mesh is None:
+            raise ValueError("restore: shardings need the mesh they "
+                             "place on")
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -195,6 +214,10 @@ class CheckpointManager:
                     f"leaf {i} ({path}): checkpoint shape {arr.shape} != "
                     f"template {tuple(t.shape)}")
             x = _from_numpy(arr, manifest["dtypes"][i])
+            if shardings is not None and path in shardings:
+                out.append(distribute(x.to(dtype=t.dtype), mesh,
+                                      shardings[path]))
+                continue
             # a copy: the tensor owns its memory, not numpy's buffer
             out.append(x.to(device if device is not None else t.device,
                             t.dtype, copy=True))

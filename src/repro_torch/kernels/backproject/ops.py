@@ -24,11 +24,12 @@ def backproject(sino: torch.Tensor, angles: torch.Tensor, out_size: int,
     n_angles, n_det = sino.shape[-2:]
     if not use_pallas or sino.device.type == "cpu":
         theta = angles.to(sino.device, torch.float32)
-        tally.note("backprojection", lambda: cost(
-            sino.numel() // max(n_angles * n_det, 1), n_angles, n_det,
-            out_size, rays_on_detector(torch.cos(theta), torch.sin(theta),
-                                       out_size, n_det, centre)))
-        return backproject_ref(sino, angles, out_size, centre)
+        with tally.plain_version("backprojection", lambda: cost(
+                sino.numel() // max(n_angles * n_det, 1), n_angles, n_det,
+                out_size, rays_on_detector(torch.cos(theta),
+                                           torch.sin(theta), out_size,
+                                           n_det, centre))):
+            return backproject_ref(sino, angles, out_size, centre)
     flat = sino.to(torch.float32).reshape((-1, n_angles, n_det)).contiguous()
     # float32 tables, as the reference computes them
     theta = angles.to(sino.device, torch.float32)

@@ -33,9 +33,9 @@ def correct(raw: torch.Tensor, dark: torch.Tensor, flat: torch.Tensor,
                            counts, eps, hi)
         return out.reshape(lead + (y, x))
     y, x = raw.shape[-2:]
-    tally.note("correction", lambda: cost(
-        raw.numel() // max(y * x, 1), y * x, raw.element_size(),
-        1 if counts is None else len(counts)))
-    if counts is not None:
-        return correct_batched_ref(raw, dark, flat, counts, eps, hi)
-    return correct_ref(raw, dark, flat, eps, hi)
+    with tally.plain_version("correction", lambda: cost(
+            raw.numel() // max(y * x, 1), y * x, raw.element_size(),
+            1 if counts is None else len(counts))):
+        if counts is not None:
+            return correct_batched_ref(raw, dark, flat, counts, eps, hi)
+        return correct_ref(raw, dark, flat, eps, hi)

@@ -1,6 +1,6 @@
-"""Public op: rFFT (cuFFT, via torch.fft) + the CUDA spectrum scale +
-irFFT on a CUDA tensor; the plain PyTorch version on a CPU tensor or
-when asked for it."""
+"""Public op: rFFT (cuFFT on the card, via torch.fft) + the spectrum
+scale + irFFT: the CUDA spectrum scale on a CUDA tensor, its plain
+PyTorch version on a CPU tensor or when asked for it."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -10,7 +10,7 @@ import torch
 
 from .. import tally
 from .kernel import cost, scale_spectrum_cuda
-from .ref import filter_sino_batched_ref, filter_sino_ref
+from .ref import scale_spectrum_batched_ref, scale_spectrum_ref
 
 
 def filter_sino(sino: torch.Tensor, filt: torch.Tensor, *,
@@ -31,19 +31,20 @@ def filter_sino(sino: torch.Tensor, filt: torch.Tensor, *,
     nf = filt.shape[-1]
     rows = sino.numel() // max(n_det, 1)
     members = 1 if counts is None else len(counts)
-    if not use_pallas or sino.device.type == "cpu":
-        tally.note("spectrum_scale", lambda: cost(rows, nf, members))
-        if counts is None:
-            return filter_sino_ref(sino, filt)
-        return filter_sino_batched_ref(sino, filt, counts)
     if counts is not None:                      # frames -> spectrum rows
         per_frame = int(np.prod(sino.shape[1:-1], dtype=np.int64))
         counts = [c * per_frame for c in counts]
     lead = sino.shape[:-1]
     n_fft = 2 * (nf - 1)
     spec = torch.fft.rfft(sino.reshape((-1, n_det)), n=n_fft, dim=-1)
-    scaled = scale_spectrum_cuda(
-        spec, filt.to(sino.device, torch.float32).contiguous(), counts)
+    if not use_pallas or sino.device.type == "cpu":
+        with tally.plain_version("spectrum_scale",
+                                 lambda: cost(rows, nf, members)):
+            scaled = (scale_spectrum_ref(spec, filt) if counts is None
+                      else scale_spectrum_batched_ref(spec, filt, counts))
+    else:
+        scaled = scale_spectrum_cuda(
+            spec, filt.to(sino.device, torch.float32).contiguous(), counts)
     del spec
     out = torch.fft.irfft(scaled, n=n_fft, dim=-1)
     return out[..., :n_det].reshape(lead + (n_det,)).to(sino.dtype)

@@ -10,6 +10,10 @@ inside a step's ``process`` span.  A count is computed only when an open
 tally asks for costs, so the launch tallies around every step cost
 nothing more than a dictionary update per launch.
 
+A plain version runs inside :func:`plain_version`, which notes its call
+and marks the block, so a per-op counter (``roofline.counter``) reads
+the call's work from ``cost()`` and not from the plain version's ops.
+
 Tallies are thread-local: the service's worker threads each record their
 own steps.  The process-wide counts are updated under a lock.
 """
@@ -78,3 +82,21 @@ def note(name: str, cost: Callable[[], dict[str, float]],
         if t.costs:
             t.flops += work["flops"]
             t.bytes += work["bytes"]
+
+
+@contextlib.contextmanager
+def plain_version(name: str, cost: Callable[[], dict[str, float]]
+                  ) -> Iterator[None]:
+    """Run kernel ``name``'s plain version in the block: notes one call
+    (no launch) and marks the block as the plain version's ops."""
+    note(name, cost)
+    _STATE.plain = getattr(_STATE, "plain", 0) + 1
+    try:
+        yield
+    finally:
+        _STATE.plain -= 1
+
+
+def in_plain_version() -> bool:
+    """Whether the calling thread is inside a kernel's plain version."""
+    return getattr(_STATE, "plain", 0) > 0

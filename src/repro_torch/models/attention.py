@@ -1,7 +1,8 @@
 """GQA attention: full-sequence forward + cached decode step.
 
-One card has no mesh, so the reference's sharding constraints have no
-counterpart here.
+The reference's sharding constraint points are kept (``sharding.py``):
+under a mesh (the dry-run) each redistributes a DTensor to its logical
+axes' placements; with no mesh each returns its input itself.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from torch import nn
 from .common import ModelConfig, dense_init, frozen
 from .kernels_glue import flash_attention
 from .layers import apply_rope, rope_freqs
+from .sharding import get_rules, mesh_axes
 
 
 class Attention(nn.Module):
@@ -44,13 +46,57 @@ class KVCache(NamedTuple):
     length: int          # tokens filled
 
 
+def _head_axes(r, cfg: ModelConfig, n_heads: int, kind: str) -> tuple:
+    """('batch', seq_axis, head_axis, None) with the context-parallel
+    fallback when heads don't divide the TP extent (cfg flag)."""
+    if cfg.seq_shard_fallback and r.mesh is not None:
+        ext = mesh_axes(r.mesh).get("model", 1)
+        if ext > 1 and n_heads % ext != 0:
+            return ("batch", "seq_sp", None, None)
+    return ("batch", "seq", kind, None)
+
+
+def project_heads(x: torch.Tensor, w: torch.Tensor, r, axes: tuple
+                  ) -> torch.Tensor:
+    """x (B, S, d) · w (d, H, hd) -> (B, S, H, hd), constrained to the
+    logical ``axes``.  The product runs over the flattened head dims and
+    is placed before the heads are unflattened: under a mesh DTensor
+    cannot unflatten a dim it sharded finer than the heads divide (8 kv
+    heads over a 16-way model axis).  The flattened weight is pinned, so
+    its gradient comes back in its placements before the backward
+    unflattens it."""
+    b, s, _ = x.shape
+    d, h, hd = w.shape
+    y = torch.matmul(x, r.pin(w.reshape(d, h * hd)))
+    return r.constrain(y, *axes, shape=(b, s, h, hd)).view(b, s, h, hd)
+
+
+def project_out(out: torch.Tensor, wo: torch.Tensor, r) -> torch.Tensor:
+    """out (B, S, H, hd) · wo (H, hd, d) -> (B, S, d) over the flattened
+    heads, both operands pinned (see :func:`project_heads`)."""
+    b, s, h, hd = out.shape
+    return torch.matmul(r.pin(out.reshape(b, s, h * hd)),
+                        r.pin(wo.reshape(h * hd, wo.shape[-1])))
+
+
+def _project(params: Attention, x: torch.Tensor, ctx: torch.Tensor | None,
+             cfg: ModelConfig, r) -> tuple:
+    """q from x, k and v from ``ctx`` (x itself when None), each (B, S,
+    H, hd); the sequence-parallel residual is gathered first."""
+    dt = cfg.dtype
+    x = r.constrain(x, "batch", "seq", "embed_act")
+    ctx = x if ctx is None else r.constrain(ctx, "batch", "seq", "embed_act")
+    kv_axes = _head_axes(r, cfg, cfg.n_kv_heads, "kv_heads")
+    return (project_heads(x, params.wq.to(dt), r,
+                          _head_axes(r, cfg, cfg.n_heads, "heads")),
+            project_heads(ctx, params.wk.to(dt), r, kv_axes),
+            project_heads(ctx, params.wv.to(dt), r, kv_axes))
+
+
 def _qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor
          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    dt = cfg.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params.wq.to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params.wk.to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params.wv.to(dt))
+    q, k, v = _project(params, x, None, cfg, get_rules())
     if cfg.rope_fraction > 0:
         cos, sin = rope_freqs(cfg.hd, cfg.rope_fraction, cfg.rope_theta,
                               positions)
@@ -68,23 +114,22 @@ def attention_fwd(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     ``kv_override=(ctx,)`` is cross-attention (Whisper's decoder): q from
     x, k and v from ``ctx`` (B, T, d), no rotary, never causal; the
     kernel sweeps the T keys of ``ctx`` whatever S is."""
+    r = get_rules()
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     if kv_override is None:
         q, k, v = _qkv(params, x, cfg, positions)
     else:
-        dt = cfg.dtype
-        (ctx,) = kv_override
-        q = torch.einsum("bsd,dhk->bshk", x, params.wq.to(dt))
-        k = torch.einsum("bsd,dhk->bshk", ctx, params.wk.to(dt))
-        v = torch.einsum("bsd,dhk->bshk", ctx, params.wv.to(dt))
+        q, k, v = _project(params, x, kv_override[0], cfg, r)
         causal = False
     # (B, H, S, hd) layout for the kernel
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal,
                           use_pallas=cfg.use_flash)
     out = out.transpose(1, 2)                  # (B, S, H, hd)
-    return torch.einsum("bshk,hkd->bsd", out, params.wo.to(cfg.dtype))
+    out = r.constrain(out, *_head_axes(r, cfg, cfg.n_heads, "heads"))
+    y = project_out(out, params.wo.to(cfg.dtype), r)
+    return r.constrain(y, "batch", "seq", "embed_act")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -94,8 +139,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     which the caller always names."""
     L = n_layers or cfg.n_layers
     shape = (L, batch, cfg.n_kv_heads, max_len, cfg.hd)
-    return KVCache(torch.zeros(shape, dtype=cfg.dtype, device=device),
-                   torch.zeros(shape, dtype=cfg.dtype, device=device), 0)
+    r = get_rules()
+    k, v = (r.place(torch.zeros(shape, dtype=cfg.dtype, device=device),
+                    "layers", "batch", "kv_heads", "kv_seq", None)
+            for _ in range(2))
+    return KVCache(k, v, 0)
 
 
 def attention_decode(params: Attention, x: torch.Tensor,
@@ -110,13 +158,19 @@ def attention_decode(params: Attention, x: torch.Tensor,
     masking.  A ``length`` past the cache raises instead of being
     clamped as the reference's dynamic_update_slice would.
     """
+    r = get_rules()
     b, one, d = x.shape
     s_max = cache_k.shape[2]
+    cache_k = r.constrain(cache_k, "batch", "kv_heads", "kv_seq", None)
+    cache_v = r.constrain(cache_v, "batch", "kv_heads", "kv_seq", None)
     positions = torch.full((1,), length, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions)
     cache_k[:, :, length] = k[:, 0].to(cache_k.dtype)
     cache_v[:, :, length] = v[:, 0].to(cache_v.dtype)
     group = cfg.n_heads // cfg.n_kv_heads
+    # the heads whole before they are grouped: DTensor cannot regroup a
+    # head dim whose shards the kv heads do not divide
+    q = r.constrain(q, "batch", None, None, None)
     qg = q.reshape(b, cfg.n_kv_heads, group, cfg.hd)   # (B, 1, H, hd)
     # the reference's fp32 1/sqrt(hd), as a Python float: a tensor made
     # on the host and copied to the card would synchronise every layer
@@ -133,5 +187,5 @@ def attention_decode(params: Attention, x: torch.Tensor,
     out = torch.einsum("bhgs,bhsk->bhgk",
                        probs.to(cache_v.dtype).float(), cache_v.float())
     out = out.reshape(b, 1, cfg.n_heads, cfg.hd).to(cfg.dtype)
-    y = torch.einsum("bshk,hkd->bsd", out, params.wo.to(cfg.dtype))
-    return y, cache_k, cache_v
+    y = project_out(out, params.wo.to(cfg.dtype), r)
+    return r.constrain(y, "batch", None, "embed_act"), cache_k, cache_v

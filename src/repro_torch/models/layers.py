@@ -5,6 +5,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import ModelConfig, dense_init
+from .sharding import get_rules
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
@@ -73,9 +74,18 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, dtype
     indexing's (an accumulating ``index_put_``) adds them in whatever
     order the CPU threads reach them, so a resumed training run could not
     replay an uninterrupted one bit for bit."""
-    return F.embedding(tokens.long(), table).to(dtype)
+    r = get_rules()
+    # the table's d_model shards are gathered before the lookup (its
+    # vocab stays split): a batch split over `data` meets whole rows
+    table = r.constrain(table, "vocab", "embed_act")
+    out = F.embedding(tokens.long(), table).to(dtype)
+    return r.constrain(out, "batch", "seq", "embed_act")
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(B, S, d) -> (B, S, vocab) logits, fp32."""
-    return torch.einsum("bsd,vd->bsv", x.float(), table.float())
+    r = get_rules()
+    # the sequence-parallel residual is gathered before the product
+    x = r.constrain(x, "batch", "seq", "embed_act")
+    logits = torch.einsum("bsd,vd->bsv", x.float(), table.float())
+    return r.constrain(logits, "batch", "seq", "vocab_act")

@@ -20,6 +20,7 @@ from torch import nn
 
 from .common import ModelConfig, dense_init, frozen
 from .layers import rms_norm
+from .sharding import get_rules
 from .ssd import chunked_linear_scan, linear_scan_step
 
 
@@ -124,9 +125,12 @@ def mamba_fwd(params: MambaBlock, x: torch.Tensor, cfg: ModelConfig, *,
     xdt = xh.float() * dt[..., None]
     kq_b = bmat[:, :, None, :].expand(b, s, h, n)
     kq_c = cmat[:, :, None, :].expand(b, s, h, n)
+    r = get_rules()
+    xdt = r.constrain(xdt, "batch", None, "heads", None)
     y, _ = chunked_linear_scan(kq_c, kq_b, xdt, log_decay, chunk=chunk)
     y = y + params.D[None, None, :, None] * xh.float()
-    return _output(params, y.reshape(b, s, d_inner), z, cfg)
+    out = _output(params, y.reshape(b, s, d_inner), z, cfg)
+    return r.constrain(out, "batch", "seq", "embed_act")
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, lead: tuple = (), *,

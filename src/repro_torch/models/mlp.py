@@ -6,6 +6,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import dense_init, frozen
+from .sharding import get_rules
 
 
 class MLP(nn.Module):
@@ -32,7 +33,12 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, dtype,
 def mlp_fwd(params: MLP, x: torch.Tensor, dtype, activation: str = "silu"
             ) -> torch.Tensor:
     """x (..., d) -> (..., d); SwiGLU when w_gate present, else GELU."""
+    r = get_rules()
+    lead = ("batch", "seq") if x.ndim == 3 else ("batch",) * (x.ndim - 1)
+    # the sequence-parallel residual is gathered before the block
+    x = r.constrain(x, *lead, "embed_act")
     up = torch.einsum("...d,df->...f", x, params.w_up.to(dtype))
+    up = r.constrain(up, *lead, "ffn_act")
     if params.w_gate is not None:
         gate = torch.einsum("...d,df->...f", x, params.w_gate.to(dtype))
         act = F.silu(gate.float()).to(dtype) * up
@@ -41,4 +47,5 @@ def mlp_fwd(params: MLP, x: torch.Tensor, dtype, activation: str = "silu"
         act = F.gelu(up.float(), approximate="tanh").to(dtype)
     else:
         act = F.silu(up.float()).to(dtype)
-    return torch.einsum("...f,fd->...d", act, params.w_down.to(dtype))
+    out = torch.einsum("...f,fd->...d", act, params.w_down.to(dtype))
+    return r.constrain(out, *lead, "embed_act")

@@ -29,6 +29,7 @@ from ..device import resolve_device
 from .attention import init_cache as init_kv_cache
 from .common import ModelConfig, trainable, training_storage
 from .layers import embed_tokens
+from .sharding import get_rules
 from .transformer import (init_lm, lm_decode_step, lm_forward, lm_prefill,
                           lm_prefill_embeds)
 from .whisper import (init_whisper, init_whisper_cache, whisper_decode_step,
@@ -57,11 +58,21 @@ class Model:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
-    """Mean CE over positions with label >= 0.  logits fp32 (B,S,V)."""
+    """Mean CE over positions with label >= 0.  logits fp32 (B,S,V).
+
+    Written as reductions over the vocab (max, sum of exps, the label's
+    logit picked by a mask) so that logits split over the vocab (the
+    dry-run's DTensors) reduce shard by shard; the max is held constant
+    in the backward, as ``logsumexp``'s is."""
+    r = get_rules()
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    m = logits.amax(-1, keepdim=True).detach()
+    logz = (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True))
+            )[..., 0]
+    vocab = r.place(torch.arange(logits.shape[-1], device=logits.device),
+                    "vocab_act")
+    gold = torch.where(vocab == safe[..., None], logits, 0.0).sum(-1)
     ce = (logz - gold) * mask
     return ce.sum() / mask.sum().clamp_min(1)
 
@@ -90,6 +101,8 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda", *,
         raise ValueError(f"unknown family {fam!r}")
 
     def tensor(a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor) and a.device.type == dev.type:
+            return a                    # a DTensor of the dry-run too
         return torch.as_tensor(a, device=dev)
 
     def on_device(fn):

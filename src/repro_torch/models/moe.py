@@ -16,8 +16,10 @@ Its semantics are kept exactly, including where they hurt:
   choice whose slot was dropped reads another slot of its expert;
 - ``keep = pos < C``: only choices past the capacity contribute zero.
 
-On one card there is no data-parallel mesh, so the grouped dispatch has
-one group and is the flat one.
+The port has the flat dispatch only: ``cfg.moe_grouped`` (the
+reference's per-data-shard groups) has no effect, on one card and in
+the dry-run alike.  The reference's sharding constraint points of the
+flat dispatch are kept (``sharding.py``; identities with no mesh).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from torch import nn
 
 from .common import ModelConfig, dense_init, frozen
 from .mlp import MLP, init_mlp, mlp_fwd
+from .sharding import get_rules
 
 
 class MoE(nn.Module):
@@ -65,6 +68,8 @@ DISPATCH_CHUNK_TOKENS = 65_536
 def moe_fwd(params: MoE, x: torch.Tensor, cfg: ModelConfig
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux_loss scalar)."""
+    # the sequence-parallel residual is gathered before the block
+    x = get_rules().constrain(x, "batch", "seq", "embed_act")
     b, s, d = x.shape
     t = b * s
     # cfg.moe_grouped has no effect: one card is one group (module docstring)
@@ -129,13 +134,15 @@ def _moe_dispatch(params: MoE, x: torch.Tensor, cfg: ModelConfig
     upd = torch.where(keep[:, None], xt.to(dt).repeat_interleave(k, 0), 0)
     buf = torch.zeros((e, capacity + 1, d), dtype=dt, device=x.device)
     buf.index_put_((flat_ids, slot), upd, accumulate=True)
-    buf = buf[:, :capacity]
+    r = get_rules()
+    buf = r.constrain(buf[:, :capacity], "expert_act", None, None)
 
     # the expert FFN: three batched products over the experts
     gate = torch.bmm(buf, params.w_gate.to(dt))
     up = torch.bmm(buf, params.w_up.to(dt))
     act = F.silu(gate.float()).to(dt) * up
     out_buf = torch.bmm(act, params.w_down.to(dt))
+    out_buf = r.constrain(out_buf, "expert_act", None, None)
 
     # combine: the gather clamps into range; dropped choices give zero
     gathered = out_buf[flat_ids, safe.clamp(0, capacity - 1)]
@@ -144,4 +151,4 @@ def _moe_dispatch(params: MoE, x: torch.Tensor, cfg: ModelConfig
     out = weighted.reshape(t, k, d).sum(1).to(dt)
     if params.shared is not None:
         out = out + mlp_fwd(params.shared, xt, dt)
-    return out.reshape(b, s, d), aux
+    return r.constrain(out.reshape(b, s, d), "batch", "seq", "embed_act"), aux

@@ -23,13 +23,14 @@ import torch
 from torch import nn
 
 from .attention import (Attention, _qkv, attention_decode, attention_fwd,
-                        init_attention)
+                        init_attention, project_out)
 from .common import ModelConfig, frozen
 from .kernels_glue import flash_attention
 from .layers import embed_tokens, init_embedding, rms_norm, unembed
 from .mlp import MLP, init_mlp, mlp_fwd
 from .moe import MoE, init_moe, moe_fwd
 from .remat import remat
+from .sharding import get_rules, sp_residual
 
 
 class Block(nn.Module):
@@ -130,8 +131,10 @@ def _group_fwd(x: torch.Tensor, positions: torch.Tensor, subs: list[Block],
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for sub in subs:
         h = rms_norm(x, sub.ln1.to(cfg.dtype), cfg.norm_eps)
-        x = x + attention_fwd(sub.attn, h, cfg, positions=positions)
+        x = sp_residual(x + attention_fwd(sub.attn, h, cfg,
+                                          positions=positions))
         x, a = _ffn(sub, x, cfg)
+        x = sp_residual(x)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -164,17 +167,20 @@ def _prefill_from_embeds(params: LM, cfg: ModelConfig, x: torch.Tensor,
     max_len = max_len or s
     positions = torch.arange(s, device=x.device)
     shape = (len(params.layers), b, cfg.n_kv_heads, max_len, cfg.hd)
-    k_all = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    v_all = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    r = get_rules()
+    k_all, v_all = (r.place(torch.zeros(shape, dtype=x.dtype,
+                                        device=x.device),
+                            "layers", "batch", "kv_heads", "kv_seq", None)
+                    for _ in range(2))
     for i, sub in enumerate(params.layers):
         h = rms_norm(x, sub.ln1.to(cfg.dtype), cfg.norm_eps)
         q, k, v = _qkv(sub.attn, h, cfg, positions)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         o = flash_attention(qh, kh, vh, causal=True,
                             use_pallas=cfg.use_flash)
-        y = torch.einsum("bshk,hkd->bsd", o.transpose(1, 2),
-                         sub.attn.wo.to(cfg.dtype))
-        x, _ = _ffn(sub, x + y, cfg)
+        y = project_out(o.transpose(1, 2), sub.attn.wo.to(cfg.dtype), r)
+        x, _ = _ffn(sub, sp_residual(x + y), cfg)
+        x = sp_residual(x)
         k_all[i, :, :, :s] = kh
         v_all[i, :, :, :s] = vh
     x = rms_norm(x, params.ln_f.to(cfg.dtype), cfg.norm_eps)

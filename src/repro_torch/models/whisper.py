@@ -21,13 +21,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from .attention import (Attention, _qkv, attention_decode, attention_fwd,
-                        init_attention)
+from .attention import (Attention, _project, _qkv, attention_decode,
+                        attention_fwd, init_attention, project_heads,
+                        project_out)
 from .common import ModelConfig, frozen
 from .kernels_glue import flash_attention
 from .layers import embed_tokens, init_embedding, layer_norm, unembed
 from .mlp import MLP, init_mlp, mlp_fwd
 from .remat import remat
+from .sharding import get_rules, sp_residual
 
 
 @functools.lru_cache(maxsize=8)
@@ -125,9 +127,9 @@ def encode(params: Whisper, cfg: ModelConfig, frames: torch.Tensor
 
     def body(x, layer):
         h = _ln(x, layer.ln1, cfg.norm_eps, dt)
-        x = x + attention_fwd(layer.attn, h, cfg, causal=False)
+        x = sp_residual(x + attention_fwd(layer.attn, h, cfg, causal=False))
         h = _ln(x, layer.ln2, cfg.norm_eps, dt)
-        return x + mlp_fwd(layer.mlp, h, dt, activation="gelu")
+        return sp_residual(x + mlp_fwd(layer.mlp, h, dt, activation="gelu"))
 
     step = remat(body, cfg)
     for layer in params.enc_layers:
@@ -149,11 +151,12 @@ def whisper_forward(params: Whisper, cfg: ModelConfig, *,
 
     def body(x, ctx, layer):
         h = _ln(x, layer.ln1, cfg.norm_eps, dt)
-        x = x + attention_fwd(layer.attn, h, cfg, causal=True)
+        x = sp_residual(x + attention_fwd(layer.attn, h, cfg, causal=True))
         h = _ln(x, layer.ln_x, cfg.norm_eps, dt)
-        x = x + attention_fwd(layer.xattn, h, cfg, kv_override=(ctx,))
+        x = sp_residual(x + attention_fwd(layer.xattn, h, cfg,
+                                          kv_override=(ctx,)))
         h = _ln(x, layer.ln2, cfg.norm_eps, dt)
-        return x + mlp_fwd(layer.mlp, h, dt, activation="gelu")
+        return sp_residual(x + mlp_fwd(layer.mlp, h, dt, activation="gelu"))
 
     step = remat(body, cfg)
     for layer in params.dec_layers:
@@ -170,8 +173,8 @@ def _attend(params: Attention, q: torch.Tensor, k: torch.Tensor,
     """q (B, H, S, hd) against k/v (B, Hkv, T, hd) through the kernel, then
     the output projection: (B, S, d)."""
     o = flash_attention(q, k, v, causal=causal, use_pallas=cfg.use_flash)
-    return torch.einsum("bshk,hkd->bsd", o.transpose(1, 2),
-                        params.wo.to(cfg.dtype))
+    return project_out(o.transpose(1, 2), params.wo.to(cfg.dtype),
+                       get_rules())
 
 
 def whisper_prefill(params: Whisper, cfg: ModelConfig, frames: torch.Tensor,
@@ -197,9 +200,10 @@ def whisper_prefill(params: Whisper, cfg: ModelConfig, frames: torch.Tensor,
         cache["v"][i, :, :, :s] = v
         x = x + _attend(layer.attn, q, k, v, cfg, causal=True)
         h = _ln(x, layer.ln_x, cfg.norm_eps, dt)
-        for name, w in (("xk", layer.xattn.wk), ("xv", layer.xattn.wv)):
-            cache[name][i] = torch.einsum("bsd,dhk->bhsk", ctx, w.to(dt))
-        q = torch.einsum("bsd,dhk->bhsk", h, layer.xattn.wq.to(dt))
+        q, xk, xv = (t.transpose(1, 2) for t in _project(
+            layer.xattn, h, ctx, cfg, get_rules()))
+        cache["xk"][i] = xk
+        cache["xv"][i] = xv
         x = x + _attend(layer.xattn, q, cache["xk"][i], cache["xv"][i], cfg,
                         causal=False)
         h = _ln(x, layer.ln2, cfg.norm_eps, dt)
@@ -225,6 +229,7 @@ def whisper_decode_step(params: Whisper, cfg: ModelConfig,
     group = cfg.n_heads // cfg.n_kv_heads
     # the reference's fp32 1/sqrt(hd), as a Python float
     scale = float(np.float32(1) / np.sqrt(np.float32(cfg.hd)))
+    r = get_rules()
     for i, layer in enumerate(params.dec_layers):
         h = _ln(x, layer.ln1, cfg.norm_eps, dt)
         y, _, _ = attention_decode(layer.attn, h, cache["k"][i],
@@ -234,7 +239,9 @@ def whisper_decode_step(params: Whisper, cfg: ModelConfig,
         # cross-attention: full (non-causal) attention over encoder K/V;
         # cache-typed operands, fp32 products, as in the reference
         xk, xv = cache["xk"][i], cache["xv"][i]
-        q = torch.einsum("bsd,dhk->bhsk", h, layer.xattn.wq.to(dt))
+        # the heads whole before they are grouped (as attention_decode)
+        q = project_heads(h, layer.xattn.wq.to(dt), r,
+                          ("batch", None, None, None))
         qg = q.reshape(b, cfg.n_kv_heads, group, cfg.hd)
         logits = torch.einsum("bhgk,bhsk->bhgs",
                               qg.to(xk.dtype).float(), xk.float()) * scale
@@ -242,8 +249,7 @@ def whisper_decode_step(params: Whisper, cfg: ModelConfig,
         o = torch.einsum("bhgs,bhsk->bhgk",
                          probs.to(xv.dtype).float(), xv.float())
         o = o.reshape(b, 1, cfg.n_heads, cfg.hd)
-        x = x + torch.einsum("bshk,hkd->bsd", o.to(dt),
-                             layer.xattn.wo.to(dt))
+        x = x + project_out(o.to(dt), layer.xattn.wo.to(dt), r)
         h = _ln(x, layer.ln2, cfg.norm_eps, dt)
         x = x + mlp_fwd(layer.mlp, h, dt, activation="gelu")
     x = _ln(x, params.dec_ln_f, cfg.norm_eps, dt)
@@ -257,9 +263,13 @@ def init_whisper_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     1500) K/V of every decoder layer."""
     t = frames or cfg.max_frames or 1500
 
+    rules = get_rules()
+
     def kv(s):
-        return torch.zeros((cfg.n_layers, batch, cfg.n_kv_heads, s, cfg.hd),
-                           dtype=cfg.dtype, device=device)
+        return rules.place(
+            torch.zeros((cfg.n_layers, batch, cfg.n_kv_heads, s, cfg.hd),
+                        dtype=cfg.dtype, device=device),
+            "layers", "batch", "kv_heads", "kv_seq", None)
 
     return {"k": kv(max_len), "v": kv(max_len), "xk": kv(t), "xv": kv(t),
             "length": 0}

@@ -24,6 +24,7 @@ from torch import nn
 
 from .common import ModelConfig, dense_init, frozen
 from .layers import rms_norm
+from .sharding import get_rules
 from .ssd import chunked_linear_scan, linear_scan_step
 
 
@@ -104,10 +105,13 @@ def _v_ext(v, log_i):
 
 def mlstm_fwd(params: MLSTMBlock, x: torch.Tensor, cfg: ModelConfig, *,
               chunk: int = 64) -> torch.Tensor:
+    r = get_rules()
     hx, q, k, v, log_i, log_f = _mlstm_in(params, x, cfg)
+    q = r.constrain(q, "batch", None, "heads", None)
     y_ext, _ = chunked_linear_scan(q.float(), k.float(), _v_ext(v, log_i),
                                    log_f, chunk=chunk)
-    return _mlstm_out(params, hx, y_ext, cfg)
+    out = _mlstm_out(params, hx, y_ext, cfg)
+    return r.constrain(out, "batch", "seq", "embed_act")
 
 
 class MLSTMCache(NamedTuple):
@@ -214,7 +218,8 @@ def slstm_fwd(params: SLSTMBlock, x: torch.Tensor, cfg: ModelConfig
     for t in range(x.shape[1]):
         h_new, cache = _slstm_cell(params, gates_in[:, t], cache)
         hs.append(h_new)
-    return _slstm_out(params, torch.stack(hs, dim=1), cfg)
+    out = _slstm_out(params, torch.stack(hs, dim=1), cfg)
+    return get_rules().constrain(out, "batch", "seq", "embed_act")
 
 
 def slstm_step(params: SLSTMBlock, x: torch.Tensor, cache: SLSTMCache,

@@ -17,6 +17,7 @@ from .xlstm import (MLSTMBlock, MLSTMCache, SLSTMBlock, SLSTMCache,
                     init_mlstm_block, init_mlstm_cache, init_slstm_block,
                     init_slstm_cache, mlstm_fwd, mlstm_step, slstm_fwd,
                     slstm_step)
+from .sharding import get_rules, sp_residual
 
 
 def _layout(cfg: ModelConfig) -> tuple[int, int]:
@@ -81,9 +82,9 @@ def xlstm_forward(params: XLSTM, cfg: ModelConfig, *,
 
     def body(x, mls, sls):
         for layer in mls:
-            x = x + mlstm_fwd(layer, x, cfg)
+            x = sp_residual(x + mlstm_fwd(layer, x, cfg))
         if sls is not None:
-            x = x + slstm_fwd(sls, x, cfg)
+            x = sp_residual(x + slstm_fwd(sls, x, cfg))
         return x
 
     step = remat(body, cfg)
@@ -98,11 +99,23 @@ def xlstm_forward(params: XLSTM, cfg: ModelConfig, *,
 def init_xlstm_cache(cfg: ModelConfig, batch: int, *,
                      device: torch.device | str) -> dict:
     g, m = _layout(cfg)
+    rules = get_rules()
+
+    def pin(lead, tree):
+        # every cache leaf is (B, H, ...) after the stacked lead dims
+        return type(tree)(*(
+            rules.place(a, *[None] * len(lead), "batch", "heads",
+                        *[None] * (a.ndim - len(lead) - 2))
+            for a in tree))
+
     if cfg.slstm_every == 0:
-        return {"mlstm": init_mlstm_cache(cfg, batch, (g,), device=device),
+        return {"mlstm": pin((g,), init_mlstm_cache(cfg, batch, (g,),
+                                                    device=device)),
                 "length": 0}
-    return {"mlstm": init_mlstm_cache(cfg, batch, (g, m), device=device),
-            "slstm": init_slstm_cache(cfg, batch, (g,), device=device),
+    return {"mlstm": pin((g, m), init_mlstm_cache(cfg, batch, (g, m),
+                                                  device=device)),
+            "slstm": pin((g,), init_slstm_cache(cfg, batch, (g,),
+                                                device=device)),
             "length": 0}
 
 

@@ -24,6 +24,7 @@ from .mamba2 import (MambaBlock, MambaCache, init_mamba_block,
                      init_mamba_cache, mamba_fwd, mamba_step)
 from .mlp import MLP, init_mlp, mlp_fwd
 from .remat import remat
+from .sharding import get_rules, sp_residual
 
 
 def _layout(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -91,14 +92,14 @@ def zamba_forward(params: Zamba, cfg: ModelConfig, *,
 
     def group_body(x, group):
         for layer in group:
-            x = x + mamba_fwd(layer, x, cfg)
-        return _shared_block(params, x, cfg, positions)
+            x = sp_residual(x + mamba_fwd(layer, x, cfg))
+        return sp_residual(_shared_block(params, x, cfg, positions))
 
     step = remat(group_body, cfg)       # the tail is not, as in the reference
     for group in params.groups:
         x = step(x, group)
     for layer in params.tail:
-        x = x + mamba_fwd(layer, x, cfg)
+        x = sp_residual(x + mamba_fwd(layer, x, cfg))
     x = rms_norm(x, params.ln_f.to(cfg.dtype), cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params.out_table, x), aux
@@ -108,15 +109,26 @@ def zamba_forward(params: Zamba, cfg: ModelConfig, *,
 def init_zamba_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                      device: torch.device | str) -> dict:
     g, k, r = _layout(cfg)
+    rules = get_rules()
 
     def kv():
-        return torch.zeros((g, batch, cfg.n_kv_heads, max_len, cfg.hd),
-                           dtype=cfg.dtype, device=device)
+        return rules.place(
+            torch.zeros((g, batch, cfg.n_kv_heads, max_len, cfg.hd),
+                        dtype=cfg.dtype, device=device),
+            None, "batch", "kv_heads", "kv_seq", None)
 
-    cache = {"mamba": init_mamba_cache(cfg, batch, (g, k), device=device),
-             "attn_k": kv(), "attn_v": kv(), "length": 0}
+    def pin(lead):
+        # conv (B, W-1, conv) and ssd (B, H, N, P) leaves, stacked `lead`
+        one = init_mamba_cache(cfg, batch, lead, device=device)
+        pad = [None] * len(lead)
+        return MambaCache(
+            conv=rules.place(one.conv, *pad, "batch", None, "ffn_act"),
+            ssd=rules.place(one.ssd, *pad, "batch", "heads", None, None))
+
+    cache = {"mamba": pin((g, k)), "attn_k": kv(), "attn_v": kv(),
+             "length": 0}
     if r:
-        cache["tail"] = init_mamba_cache(cfg, batch, (r,), device=device)
+        cache["tail"] = pin((r,))
     return cache
 
 

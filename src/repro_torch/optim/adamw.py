@@ -78,7 +78,8 @@ def init_opt_state(params: Any, moments_dtype: str = "fp32") -> dict:
         raise ValueError("init_opt_state: no parameters")
 
     def zero(p):
-        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # zeros_like: a DTensor weight's moments take its placements
+        z = torch.zeros_like(p, dtype=torch.float32)
         return _q8(z) if moments_dtype == "int8" else z
 
     dev = next(iter(named.values())).device

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..models.model_zoo import Model
+from ..models.sharding import get_rules
 
 
 def make_serve_step(model: Model) -> Callable:
@@ -23,6 +24,8 @@ def make_serve_step(model: Model) -> Callable:
     @torch.no_grad()
     def serve_step(params, token, cache):
         logits, cache = model.decode_step(params, token, cache)
+        # the vocab whole before the argmax (an identity with no mesh)
+        logits = get_rules().constrain(logits, "batch", None, None)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         return nxt[:, None], cache
 

@@ -43,7 +43,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
     ``microbatch``: split the (global) batch into this many sequential
     accumulation chunks: the loss is the mean of the chunks' losses and
     the gradient the mean of theirs, accumulated in fp32, as the
-    reference's scan computes them.
+    reference's scan computes them.  ``batch`` may also come as the list
+    of its ``microbatch`` chunks, already split (the dry-run places each
+    chunk over the data axis, which a slice of a placed batch is not).
     """
 
     def train_step(params: nn.Module, opt_state: dict, batch: dict):
@@ -57,8 +59,14 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
         for p in named.values():
             p.grad = None
         n = microbatch if microbatch and microbatch > 1 else 1
+        if isinstance(batch, list):
+            if len(batch) != n:
+                raise ValueError(f"{len(batch)} chunks for microbatch {n}")
+            chunks = batch
+        else:
+            chunks = _split(batch, n) if n > 1 else [batch]
         loss = None
-        for chunk in (_split(batch, n) if n > 1 else [batch]):
+        for chunk in chunks:
             l = model.loss(params, chunk)
             l.backward()
             l = l.detach()

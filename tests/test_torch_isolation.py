@@ -89,7 +89,17 @@ def test_port_imports_with_jax_and_reference_blocked():
                     "repro_torch.launch.pipeline_serve",
                     "repro_torch.optim", "repro_torch.data",
                     "repro_torch.distributed", "repro_torch.models.remat",
-                    "repro_torch.launch.train", *ops]],
+                    "repro_torch.launch.train",
+                    "repro_torch.models.sharding",
+                    "repro_torch.distributed.param_sharding",
+                    "repro_torch.distributed.compression",
+                    "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+                    "repro_torch.launch.dryrun_tomo",
+                    "repro_torch.launch.perf", "repro_torch.roofline",
+                    "repro_torch.roofline.analysis",
+                    "repro_torch.roofline.counter",
+                    "repro_torch.roofline.introspect",
+                    "repro_torch.roofline.report", *ops]],
         "print('imported')"])
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -97,6 +107,27 @@ def test_port_imports_with_jax_and_reference_blocked():
                               "PYTHONPATH": str(ROOT / "src")})
     assert res.returncode == 0, res.stderr
     assert "imported" in res.stdout
+
+
+def test_dry_run_modules_set_no_environment_and_start_no_group():
+    """The reference sets XLA_FLAGS when its dry-runs are imported; the
+    port's launch modules change nothing in the process at import."""
+    code = "\n".join([
+        "import os, sys",
+        "sys.modules['jax'] = None",
+        "before = dict(os.environ)",
+        "import torch.distributed as dist",
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun",
+        "import repro_torch.launch.dryrun_tomo, repro_torch.launch.perf",
+        "assert dict(os.environ) == before, set(os.environ) ^ set(before)",
+        "assert not dist.is_initialized()",
+        "print('clean')"])
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr
+    assert "clean" in res.stdout
 
 
 @pytest.fixture

@@ -249,3 +249,59 @@ def test_straggler_timer_interface():
     m = StragglerMonitor()
     m.start_step(1)
     assert m.end_step(wall=0.01) is None
+
+
+def test_checkpoint_elastic_reshard_matches_reference(tmp_path, rng):
+    """Restore with explicit placements on a mesh (the elastic restart
+    path) gives the reference's values, leaf for leaf."""
+    import socket
+
+    import jax
+    import torch.distributed as dist
+    from jax.sharding import NamedSharding, PartitionSpec
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro.distributed import CheckpointManager as JaxCheckpointManager
+    from repro_torch.distributed import param_shardings, replicated
+
+    a = rng.normal(size=(8, 4)).astype(np.float32)
+    b = np.arange(10, dtype=np.int32)
+    jmesh = jax.make_mesh((1,), ("data",),
+                          axis_types=(jax.sharding.AxisType.Auto,))
+    jtree = {"a": jax.numpy.asarray(a), "nested": {"b": jax.numpy.asarray(b)}}
+    jcm = JaxCheckpointManager(str(tmp_path / "jax"))
+    jcm.save(1, jtree, blocking=True)
+    want, _ = jcm.restore(jtree, shardings=jax.tree.map(
+        lambda _: NamedSharding(jmesh, PartitionSpec()), jtree))
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        tree = {"a": torch.from_numpy(a), "nested": {"b": torch.from_numpy(b)}}
+        cm = CheckpointManager(str(tmp_path / "torch"))
+        cm.save(1, tree, blocking=True)
+        got, _ = cm.restore(tree, mesh=mesh,
+                            shardings=replicated(dict(_leaves(tree)), mesh))
+        for path, x in _leaves(got):
+            assert isinstance(x, DTensor), path
+        np.testing.assert_array_equal(got["a"].to_local().numpy(),
+                                      np.asarray(want["a"]))
+        np.testing.assert_array_equal(got["nested"]["b"].to_local().numpy(),
+                                      np.asarray(want["nested"]["b"]))
+        # a module refilled in place takes param_shardings' placements
+        lin = torch.nn.Linear(4, 8)
+        cm.save(2, lin, blocking=True)
+        fresh = torch.nn.Linear(4, 8)
+        cm.restore(fresh, mesh=mesh, shardings=param_shardings(fresh, mesh))
+        assert isinstance(fresh.weight, torch.nn.Parameter)
+        assert isinstance(fresh.weight.data, DTensor)
+        assert torch.equal(fresh.weight.to_local(), lin.weight.detach())
+        with pytest.raises(ValueError, match="mesh"):
+            cm.restore(fresh, shardings=param_shardings(fresh, mesh))
+    finally:
+        dist.destroy_process_group()

@@ -250,7 +250,9 @@ def test_remat_dots_recomputes_only_batched_products(arch):
     assert dots["bmm_batched"] - off["bmm_batched"] == \
         per_layer * cfg.n_layers
     assert dots["bmm_b1"] == off["bmm_b1"] and dots["mm"] == off["mm"]
-    assert nothing["bmm_b1"] > off["bmm_b1"]
+    # the unbatched products reach aten.mm (matmul) or a bmm of batch 1
+    # (einsum): 'nothing' runs more of them than remat off
+    assert nothing["bmm_b1"] + nothing["mm"] > off["bmm_b1"] + off["mm"]
     assert nothing["bmm_batched"] == dots["bmm_batched"]
 
 
