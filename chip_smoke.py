@@ -134,12 +134,24 @@ Phases, each fatal on failure:
    just before each run and must read one prefill's launches per prompt
    (32, 60, 24, 0, 36); every logit finite, every token in the
    vocabulary; then a few decode steps of a fresh cache under
-   ``torch.profiler`` (device busy time against the wall, top kernels);
+   ``torch.profiler`` (device busy time against the wall, top kernels).
+   qwen3-moe is served a second time on the same weights with the same
+   traffic through the grouped MoE dispatch (``moe_grouped``; one card
+   is one group): its prefill and decode medians beside the flat run's,
+   its first prefill's logits within ``GROUPED_LOGITS_ATOL`` of the flat
+   run's;
 8. family parity: the six smoke configurations of those families
    (fp32, llama4-maverick's dense/MoE interleave and shared expert
-   included) through ``greedy_generate`` with the kernel on the card and
-   with the plain versions on the CPU, on the same weights: identical
-   tokens, prefill logits within 2e-4;
+   included), and qwen3-moe's and llama4's with the grouped dispatch at
+   1, 2 and 4 groups (the group count pinned through
+   ``moe._dp_extent``), through ``greedy_generate`` with the kernel on
+   the card and with the plain versions on the CPU, on the same
+   weights: identical tokens, prefill logits within 2e-4.  Then one MoE
+   layer at qwen3-moe's full widths (d 4096, 128 experts, top 8, f
+   1536, bf16, x (4, 1024, 4096), seed 0): the grouped dispatch at 4
+   groups must equal the flat dispatch applied to each group's tokens
+   on its own within rtol 1e-2 and atol 1e-3, and its aux the flat aux;
+   the largest difference and the CUDA-event times of both;
 9. training, through the entry points a trainer calls
    (``build_model(cfg, training=True)``, ``init_training``,
    ``make_train_step``, ``token_stream``, ``launch.train``); no kernel
@@ -191,7 +203,11 @@ Phases, each fatal on failure:
       (each layer costs ~14 s of tracing), and ``launch.dryrun_tomo``
       at 3072 x 2048 x 2048: ``peak_estimate`` per device beside the
       card's ``total_memory``, the ladder's final knobs, the roofline
-      terms.
+      terms; then ``DRYRUN_CELLS`` on the same mesh (qwen3-moe
+      ``train_4k`` flat and grouped, xlstm-1.3b ``decode_32k``,
+      granite-8b ``decode_32k``, whisper-small ``train_4k`` and
+      ``decode_32k``): each one's peak, roofline terms, collectives and
+      trace seconds; any failure is fatal.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (the
 correction row also gives the gang launch, ``batched_*``, and the
@@ -217,6 +233,7 @@ slice sweep alone.  Copied into a checkout whose kernel library has no
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -305,7 +322,7 @@ REMOTE_WAIT_S = 600
 FAMILIES = {
     "qwen3-moe-235b-a22b": {"n_layers": 8, "batcher": True, "requests": 4,
                             "prompt_len": 1024, "max_new": 32, "slots": 4,
-                            "max_len": 2048},
+                            "max_len": 2048, "grouped": True},
     "llava-next-34b": {"batcher": False, "batch": 2, "patches": 2048,
                        "prompt_len": 64, "max_new": 32, "max_len": 2176},
     "zamba2-1.2b": {"batcher": True, "requests": 4, "prompt_len": 2048,
@@ -315,10 +332,21 @@ FAMILIES = {
     "whisper-small": {"batcher": False, "batch": 4, "frames": 1500,
                       "prompt_len": 4, "max_new": 64, "max_len": 448},
 }
-#: phase 8: the families' smoke configurations, card against CPU
+#: phase 7: the grouped run's first prefill logits against the flat
+#: run's.  One card is one group, so both compute the same products; the
+#: scatter's accumulating index_put_ adds with atomics, whose order (where
+#: wrapped positions collide) may round a bf16 buffer either way
+GROUPED_LOGITS_ATOL = 5e-2
+#: phase 8: the families' smoke configurations, card against CPU, and
+#: the MoE configurations' grouped dispatch at each group count (pinned)
 FAMILY_PARITY = ["qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
                  "llava-next-34b", "zamba2-1.2b", "xlstm-1.3b",
                  "whisper-small"]
+GROUPED_PARITY = [(arch, g) for arch in FAMILY_PARITY[:2] for g in (1, 2, 4)]
+#: phase 8's full-width MoE layer (qwen3-moe's widths, bf16, seed 0): the
+#: grouped dispatch at g against the flat one on each group on its own
+MOE_LAYER = {"arch": "qwen3-moe-235b-a22b", "x": (4, 1024), "groups": 4,
+             "rtol": 1e-2, "atol": 1e-3, "reps": 5}
 #: phase 9a: granite-8b FULL trained at full width at the repo's
 #: ``train_4k`` shape (seq 4096; the global batch cut from 256 to 8, one
 #: sequence a microbatch chunk), remat 'dots', fp32 moments; 1 warm-up
@@ -336,6 +364,21 @@ PREFILL_FLOPS_RTOL = 0.01
 #: phase 10c: granite-8b train_4k traced on the fake 16 x 16 mesh at this
 #: depth (of 36): each layer costs ~14 s of host time (8 microbatches)
 DRYRUN_DEPTH = 2
+#: phase 10c: more cells on the same mesh, each (arch, shape, depth,
+#: lower_cell's knobs): qwen3-moe's train with perf thread A's knobs,
+#: flat (A0) and grouped (A1); xlstm's decode at one whole group of 8;
+#: the decode cells and whisper's train that DTensor once refused on
+#: torch 2.11 (the train with the ladder's first microbatch count)
+DRYRUN_CELLS = [
+    ("qwen3-moe-235b-a22b", "train_4k", 2,
+     {"microbatch": 8, "remat_policy": "nothing"}),
+    ("qwen3-moe-235b-a22b", "train_4k", 2,
+     {"microbatch": 8, "remat_policy": "nothing", "moe_grouped": True}),
+    ("xlstm-1.3b", "decode_32k", 8, {}),
+    ("granite-8b", "decode_32k", 2, {}),
+    ("whisper-small", "train_4k", 2, {"microbatch": 8}),
+    ("whisper-small", "decode_32k", 2, {}),
+]
 #: phase 9b: train steps of each smoke config, card against CPU
 TRAIN_PARITY_STEPS = 2
 #: phase 9c: launch.train killed once step_<kill_after> is published
@@ -1019,23 +1062,12 @@ def families_phase(dev) -> dict:
     from repro_torch.training import (ContinuousBatcher, Request,
                                       greedy_generate, make_serve_step)
 
-    report = {}
-    for arch, run in FAMILIES.items():
-        full = get_config(arch)
-        cfg = dataclasses.replace(full, use_flash=True, n_layers=run.get(
-            "n_layers", full.n_layers))
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        resident = torch.cuda.memory_allocated(dev)
-        t0 = time.perf_counter()
-        model = build_model(cfg, dev)
-        params = model.init(torch.Generator(device=dev).manual_seed(0))
-        torch.cuda.synchronize(dev)
-        init_s = time.perf_counter() - t0
-        weight_bytes = sum(p.numel() * p.element_size()
-                           for p in params.parameters())
+    def drive(cfg, model, params, run) -> dict:
+        """``run``'s traffic through ``model`` on ``params``; fails unless
+        the flash launches are one prefill's per prompt and every logit
+        is finite and every token in the vocabulary."""
         nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
-        prefill_ms, decode_ms = [], []
+        prefill_ms, decode_ms, first = [], [], []
 
         def timed(fn, times):
             def call(*args):
@@ -1045,6 +1077,8 @@ def families_phase(dev) -> dict:
                 torch.cuda.synchronize(dev)
                 times.append((time.perf_counter() - t) * 1e3)
                 nonfinite.add_((~torch.isfinite(logits)).sum())
+                if times is prefill_ms and not first:
+                    first.append(logits.float().cpu())
                 return logits, cache
             return call
 
@@ -1086,23 +1120,7 @@ def families_phase(dev) -> dict:
         launches = flash_attention_cuda.launches
         want = prompts * flash_per_prefill(cfg)
         n_tokens = sum(len(t) for t in tokens)
-        report[arch] = {
-            "width": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
-                      "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
-                      "d_ff": cfg.d_ff, "vocab": cfg.vocab},
-            "depth": cfg.n_layers, "depth_full": full.n_layers,
-            "traffic": {k: v for k, v in run.items() if k != "n_layers"},
-            "weights_bytes": weight_bytes, "init_s": init_s,
-            "prefill_ms": prefill_ms,
-            "prefill_ms_median": statistics.median(prefill_ms),
-            "decode_steps": len(decode_ms),
-            "decode_step_ms_median": statistics.median(decode_ms),
-            "wall_s": wall, "tokens": n_tokens,
-            "tokens_per_s": n_tokens / wall,
-            # the model's own peak: what it added to what was resident
-            "peak_bytes": torch.cuda.max_memory_allocated(dev) - resident,
-            "resident_bytes": resident,
-            "flash_launches": launches, "flash_launches_expected": want}
+        arch = cfg.arch_id
         if launches != want:
             fail(f"{arch}: the flash kernel launched {launches} times, "
                  f"expected {want}")
@@ -1114,6 +1132,56 @@ def families_phase(dev) -> dict:
                  f"outside [0, {cfg.vocab})")
         if int(nonfinite):
             fail(f"{arch}: {int(nonfinite)} non-finite logits")
+        return {"prefill_ms": prefill_ms,
+                "prefill_ms_median": statistics.median(prefill_ms),
+                "decode_steps": len(decode_ms),
+                "decode_step_ms_median": statistics.median(decode_ms),
+                "wall_s": wall, "tokens": n_tokens,
+                "tokens_per_s": n_tokens / wall,
+                "flash_launches": launches, "flash_launches_expected": want,
+                "first_prefill_logits": first[0]}
+
+    report = {}
+    for arch, run in FAMILIES.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, use_flash=True, n_layers=run.get(
+            "n_layers", full.n_layers))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        model = build_model(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in params.parameters())
+        got = drive(cfg, model, params, run)
+        logits = got.pop("first_prefill_logits")
+        report[arch] = {
+            "width": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                      "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
+                      "d_ff": cfg.d_ff, "vocab": cfg.vocab},
+            "depth": cfg.n_layers, "depth_full": full.n_layers,
+            "traffic": {k: v for k, v in run.items() if k != "n_layers"},
+            "weights_bytes": weight_bytes, "init_s": init_s, **got,
+            # the model's own peak: what it added to what was resident
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) - resident,
+            "resident_bytes": resident}
+        if run.get("grouped"):
+            # the same weights and traffic through the grouped dispatch:
+            # one card is one group, so the arithmetic is the flat one's
+            gcfg = dataclasses.replace(cfg, moe_grouped=True)
+            grouped = drive(gcfg, build_model(gcfg, dev), params, run)
+            diff = float((grouped.pop("first_prefill_logits")
+                          - logits).abs().max())
+            report[arch]["grouped"] = {**grouped,
+                                       "first_prefill_max_abs_diff": diff}
+            if diff > GROUPED_LOGITS_ATOL:
+                fail(f"{arch}: the grouped dispatch's first prefill logits "
+                     f"differ from the flat one's by {diff} > "
+                     f"{GROUPED_LOGITS_ATOL}")
+        del logits
         # where a decode step's time goes, on a fresh cache of the run's
         # batch (the recurrent families' steps cost the same at any
         # position; an attention step attends over all max_len slots)
@@ -1144,11 +1212,7 @@ def families_phase(dev) -> dict:
             "top_kernels_ms_per_step": [
                 [e.key[:80], e.self_device_time_total / 1e3 / PROFILED_STEPS]
                 for e in on_card[:4]]}
-        del model, served, params, tokens, cache, prof
-        if run["batcher"]:
-            del runner
-        else:
-            del batch
+        del model, params, cache, prof
         torch.cuda.empty_cache()
     return report
 
@@ -1167,45 +1231,121 @@ def family_parity_phase(dev, compare) -> dict:
     from repro_torch.models import build_model
     from repro_torch.training import greedy_generate
 
+    from repro_torch.models import moe
+
     report = {}
-    for arch in FAMILY_PARITY:
+    runs_of = [(arch, None) for arch in FAMILY_PARITY] + GROUPED_PARITY
+    for arch, groups in runs_of:
         cfg = dataclasses.replace(get_config(arch, smoke=True),
-                                  use_flash=True)
-        batch = smoke_batch(cfg, batch=2, seq=16, seed=3)
-        batch.pop("labels")
-        weights = build_model(cfg, "cpu").init(
-            torch.Generator().manual_seed(0))
-        runs = {}
-        for device in (dev, torch.device("cpu")):
-            model = build_model(cfg, device)
-            params = copy.deepcopy(weights).to(device)
-            logits = []
-
-            def prefill(params, batch, max_len, model=model, logits=logits):
-                out, cache = model.prefill(params, batch, max_len)
-                logits.append(out.cpu())
-                return out, cache
-
-            flash_attention_cuda.launches = 0
-            tokens = greedy_generate(
-                dataclasses.replace(model, prefill=prefill), params, batch,
-                max_new=8, max_len=32)
-            runs[device.type] = (tokens, logits[0],
-                                 flash_attention_cuda.launches)
-        (card_toks, card_logits, n_card), (cpu_toks, cpu_logits, n_cpu) = \
-            runs["cuda"], runs["cpu"]
-        if (n_card, n_cpu) != (flash_per_prefill(cfg), 0):
-            fail(f"family parity {arch}: {n_card} kernel launches on the "
-                 f"card, {n_cpu} on the CPU")
-        if not np.array_equal(card_toks, cpu_toks):
-            fail(f"family parity {arch}: tokens differ, card {card_toks} "
-                 f"cpu {cpu_toks}")
-        report[arch] = {
-            "max_abs_err": compare(f"family parity {arch}: smoke prefill "
-                                   f"logits, card vs CPU", card_logits,
-                                   cpu_logits, 2e-4, 2e-4),
-            "flash_launches": n_card, "tokens_identical": True}
+                                  use_flash=True,
+                                  moe_grouped=groups is not None)
+        name = arch if groups is None else f"{arch}_grouped_g{groups}"
+        pinned = (mock.patch.object(moe, "_dp_extent", lambda r: groups)
+                  if groups else contextlib.nullcontext())
+        with pinned:
+            report[name] = _parity_run(dev, compare, arch, cfg)
+    report["moe_layer"] = moe_layer_check(dev)
     return report
+
+
+def _parity_run(dev, compare, arch, cfg) -> dict:
+    """One smoke configuration on the card and on the CPU (phase 8)."""
+    import copy
+
+    import torch
+    from repro_torch.configs import smoke_batch
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.models import build_model
+    from repro_torch.training import greedy_generate
+
+    batch = smoke_batch(cfg, batch=2, seq=16, seed=3)
+    batch.pop("labels")
+    weights = build_model(cfg, "cpu").init(
+        torch.Generator().manual_seed(0))
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        model = build_model(cfg, device)
+        params = copy.deepcopy(weights).to(device)
+        logits = []
+
+        def prefill(params, batch, max_len, model=model, logits=logits):
+            out, cache = model.prefill(params, batch, max_len)
+            logits.append(out.cpu())
+            return out, cache
+
+        flash_attention_cuda.launches = 0
+        tokens = greedy_generate(
+            dataclasses.replace(model, prefill=prefill), params, batch,
+            max_new=8, max_len=32)
+        runs[device.type] = (tokens, logits[0],
+                             flash_attention_cuda.launches)
+    (card_toks, card_logits, n_card), (cpu_toks, cpu_logits, n_cpu) = \
+        runs["cuda"], runs["cpu"]
+    if (n_card, n_cpu) != (flash_per_prefill(cfg), 0):
+        fail(f"family parity {arch}: {n_card} kernel launches on the "
+             f"card, {n_cpu} on the CPU")
+    if not np.array_equal(card_toks, cpu_toks):
+        fail(f"family parity {arch}: tokens differ, card {card_toks} "
+             f"cpu {cpu_toks}")
+    return {
+        "max_abs_err": compare(f"family parity {cfg.arch_id} (grouped "
+                               f"{cfg.moe_grouped}): smoke prefill "
+                               f"logits, card vs CPU", card_logits,
+                               cpu_logits, 2e-4, 2e-4),
+        "flash_launches": n_card, "tokens_identical": True}
+
+
+def moe_layer_check(dev) -> dict:
+    """Phase 8: one MoE layer at qwen3-moe's full widths on the card
+    (``MOE_LAYER``): the grouped dispatch at g groups must equal the flat
+    dispatch applied to each group's tokens on its own (each with its
+    own capacity), and its aux loss the flat one's over all tokens.
+    CUDA-event times of the grouped call, the flat call over all tokens
+    and the flat calls group by group."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    g = MOE_LAYER["groups"]
+    cfg = dataclasses.replace(get_config(MOE_LAYER["arch"]), moe_grouped=True)
+    flat = dataclasses.replace(cfg, moe_grouped=False)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = moe.init_moe(gen, cfg, cfg.dtype)
+    x = torch.randn(MOE_LAYER["x"] + (cfg.d_model,), generator=gen,
+                    device=dev).to(cfg.dtype)
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    with torch.no_grad(), mock.patch.object(moe, "_dp_extent",
+                                            lambda r: g):
+        out, aux = moe.moe_fwd(params, x, cfg)
+        quarters = x.reshape(g, -1, cfg.d_model)
+        want = torch.cat([moe.moe_fwd(params, q[None], flat)[0]
+                          for q in quarters]).reshape(x.shape)
+        _, flat_aux = moe.moe_fwd(params, x, flat)
+        reps = MOE_LAYER["reps"]
+        grouped_ms = cuda_ms(lambda: moe.moe_fwd(params, x, cfg), reps)
+        flat_ms = cuda_ms(lambda: moe.moe_fwd(params, x, flat), reps)
+        per_group_ms = cuda_ms(lambda: [moe.moe_fwd(params, q[None], flat)
+                                        for q in quarters], reps)
+    err = float((out.float() - want.float()).abs().max())
+    if not torch.allclose(out.float(), want.float(), rtol=MOE_LAYER["rtol"],
+                          atol=MOE_LAYER["atol"]):
+        fail(f"moe layer: grouped (g={g}) differs from the flat dispatch "
+             f"per group by {err}")
+    if not torch.allclose(aux, flat_aux, rtol=1e-5, atol=0):
+        fail(f"moe layer: aux {float(aux)} != flat aux {float(flat_aux)}")
+    return {"d_model": cfg.d_model, "n_experts": cfg.n_experts,
+            "top_k": cfg.top_k, "moe_d_ff": cfg.moe_d_ff,
+            "x": list(x.shape), "groups": g, "dtype": str(cfg.dtype),
+            "expert_weights_bytes": weights,
+            "group_buffer_bytes": g * cfg.n_experts * int(
+                x.shape[0] * x.shape[1] // g * cfg.top_k
+                * cfg.capacity_factor // cfg.n_experts)
+            * cfg.d_model * x.element_size(),
+            "max_abs_diff_vs_flat_per_group": err,
+            "aux": float(aux), "flat_aux": float(flat_aux),
+            "grouped_ms": grouped_ms, "flat_ms": flat_ms,
+            "flat_per_group_ms": per_group_ms}
 
 
 # ----------------------------------------------------------------------
@@ -1725,8 +1865,9 @@ def roofline_phase(dev, smi: str, scan) -> dict:
 
 
 def dryrun_phase(smi: str) -> dict:
-    """10c: granite-8b ``train_4k`` down the memory ladder and the
-    tomography chain, on the fake 16 x 16 mesh, on the host."""
+    """10c: granite-8b ``train_4k`` down the memory ladder, the
+    tomography chain and ``DRYRUN_CELLS``, on the fake 16 x 16 mesh, on
+    the host; fails if any cell fails to trace."""
     import torch
 
     from repro_torch.launch import dryrun, dryrun_tomo
@@ -1734,11 +1875,26 @@ def dryrun_phase(smi: str) -> dict:
 
     total = torch.cuda.get_device_properties(0).total_memory
     t0 = time.perf_counter()
+    cells = {}
     with production_mesh() as mesh:
         rec = dryrun.ladder("granite-8b", "train_4k", mesh,
                             n_layers=DRYRUN_DEPTH)
         t_lm = time.perf_counter() - t0
         tomo = dryrun_tomo.lower_chain(mesh)
+        for arch, shape, depth, knobs in DRYRUN_CELLS:
+            tag = f"{arch}__{shape}" + (
+                "__grouped" if knobs.get("moe_grouped") else "")
+            t = time.perf_counter()
+            try:
+                r = dryrun.lower_cell(arch, shape, mesh, n_layers=depth,
+                                      **knobs)
+            except Exception as e:      # noqa: BLE001 — named, then fatal
+                fail(f"dryrun {tag}: {type(e).__name__}: {e}")
+            cells[tag] = {
+                "n_layers": r["n_layers"], "knobs": knobs,
+                "peak_estimate": r["memory"]["peak_estimate"],
+                "comm_counts": r["comm_counts"], **roof(r),
+                "trace_s": time.perf_counter() - t}
     # the one property the chain's dry-run must keep: each PROJECTION ->
     # SINOGRAM transition is one all-to-all, as the reference lowers it
     if (tomo["transitions"] != 1 or tomo["comm_counts"]
@@ -1748,12 +1904,6 @@ def dryrun_phase(smi: str) -> dict:
     if rec["memory"]["peak_estimate"] > total:
         fail(f"dryrun granite-8b train_4k: peak_estimate "
              f"{rec['memory']['peak_estimate']} > the card's {total}")
-
-    def roof(r):
-        return {k: r["roofline"][k] for k in (
-            "compute_s", "memory_s", "collective_s", "bottleneck",
-            "useful_ratio", "coll_detail")}
-
     return {
         "card": smi, "total_memory": total,
         "granite_8b_train_4k": {
@@ -1767,7 +1917,15 @@ def dryrun_phase(smi: str) -> dict:
             "tag": tomo["tag"], "peak_estimate": tomo["memory"][
                 "peak_estimate"], "transitions": tomo["transitions"],
             "comm_counts": tomo["comm_counts"], **roof(tomo)},
+        "cells": cells, "torch": torch.__version__,
         "phase_s": time.perf_counter() - t0}
+
+
+def roof(r: dict) -> dict:
+    """A dry-run record's roofline terms."""
+    return {k: r["roofline"][k] for k in (
+        "compute_s", "memory_s", "collective_s", "bottleneck",
+        "useful_ratio", "coll_detail")}
 
 
 def main() -> None:

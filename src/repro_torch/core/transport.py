@@ -25,6 +25,7 @@ import os
 import shutil
 import tempfile
 import time
+import weakref
 from collections import OrderedDict
 from typing import Any, Sequence
 
@@ -221,7 +222,7 @@ class LocalCompileCache:
 class _PeakMemory(TorchDispatchMode):
     """Peak bytes on ``device`` of the tensors that the ops run under it
     allocate and that are alive at once.  A storage counts from the op
-    that returns it until it is freed (seen at the next op); a storage
+    that returns it until it is freed; a storage
     that existed before (an input, or what a view of it shares) never
     counts, nor does what a library op allocates and frees inside itself
     (cuFFT's work area).  Dispatch modes are per thread, so what other
@@ -232,17 +233,16 @@ class _PeakMemory(TorchDispatchMode):
     def __init__(self, device: torch.device):
         super().__init__()
         self.device = device
-        self._seen: dict[int, tuple[StorageWeakRef, int]] = {}
+        # storage -> a weak reference whose callback, run when the
+        # storage is freed, takes its bytes off ``now``: no op walks the
+        # live storages (a 32k-step recurrence holds as many)
+        self._seen: dict[int, weakref.ref] = {}
         self.now = 0
         self.peak = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(isinstance(t, DTensor) for t in tree_leaves((args, kwargs))):
             return NotImplemented      # read the local shards beneath it
-        for cdata, (ref, n) in list(self._seen.items()):
-            if ref.expired():
-                del self._seen[cdata]
-                self.now -= n
         for t in tree_leaves((args, kwargs)):
             self._see(t, count=False)
         out = func(*args, **(kwargs or {}))
@@ -255,14 +255,20 @@ class _PeakMemory(TorchDispatchMode):
         if not isinstance(t, torch.Tensor):
             return
         st = t.untyped_storage()
-        ref = StorageWeakRef(st)
-        if ref.cdata in self._seen:
+        key = StorageWeakRef(st).cdata
+        if key in self._seen:
             return
         dev = t.device
         n = st.nbytes() if count and dev.type == self.device.type and (
             self.device.index is None or dev.index == self.device.index) \
             else 0
-        self._seen[ref.cdata] = (ref, n)
+
+        def freed(_, key=key, n=n):
+            self._seen.pop(key, None)
+            self.now -= n
+
+        # a storage's Python object lives as long as the storage does
+        self._seen[key] = weakref.ref(st, freed)
         self.now += n
 
 

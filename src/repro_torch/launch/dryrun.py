@@ -31,6 +31,7 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-8b \\
         --shape train_4k --mesh pod                              # one cell
     ... --mesh both --out experiments/dryrun                     # default
+    ... --arch qwen3-moe-235b-a22b --moe-grouped      # tags end __grouped
 
 Results are cached as JSON per cell; reruns skip completed cells unless
 --force.  A cell that fails writes ``<tag>.FAIL`` with its traceback.
@@ -139,6 +140,7 @@ def lower_cell(arch_id: str, shape_name: str, mesh, *,
                moments: str = "fp32",
                sp: bool = True,
                seq_fallback: bool = False,
+               moe_grouped: bool = False,
                param_dtype=None,
                rules_overrides: dict | None = None,
                serve_params: str = "train",
@@ -147,10 +149,11 @@ def lower_cell(arch_id: str, shape_name: str, mesh, *,
     """Trace one cell on ``mesh``; return the dry-run record.
 
     ``donate`` is accepted for the reference's signature: the port's
-    steps always update their state in place.  The reference's
-    ``moe_grouped`` is not: the port's MoE has the flat dispatch only.  ``n_layers`` cuts the
-    depth (:func:`cut_depth`; the record says so under ``n_layers``);
-    None keeps the config's."""
+    steps always update their state in place.  ``moe_grouped`` picks the
+    MoE's grouped dispatch (one token group per data-parallel shard), as
+    the reference's does.  ``n_layers`` cuts the depth
+    (:func:`cut_depth`; the record says so under ``n_layers``); None
+    keeps the config's."""
     # imported here: importing torch's debug package sets an environment
     # variable (TORCHINDUCTOR_CACHE_DIR), which no import of the port may
     from torch.distributed.tensor.debug import CommDebugMode
@@ -163,6 +166,7 @@ def lower_cell(arch_id: str, shape_name: str, mesh, *,
     cfg = dataclasses.replace(base,
                               remat_policy=remat_policy,
                               seq_shard_fallback=seq_fallback,
+                              moe_grouped=moe_grouped,
                               use_flash=False,
                               **extra)
     spec = input_specs(arch_id, shape_name, cfg=cfg)
@@ -253,18 +257,19 @@ def lower_cell(arch_id: str, shape_name: str, mesh, *,
 
 def run_cells(cells, meshes: list[str], out_dir: str, force: bool,
               microbatch: int | None = None,
-              n_layers: int | None = None) -> list[dict]:
+              n_layers: int | None = None,
+              moe_grouped: bool = False) -> list[dict]:
     os.makedirs(out_dir, exist_ok=True)
     results = []
     for mesh_name in meshes:
         with production_mesh(multi_pod=(mesh_name == "pod2")) as mesh:
             results += _run_on(mesh, mesh_name, cells, out_dir, force,
-                               microbatch, n_layers)
+                               microbatch, n_layers, moe_grouped)
     return results
 
 
 def ladder(arch: str, shape: str, mesh, microbatch: int | None = None,
-           n_layers: int | None = None) -> dict:
+           n_layers: int | None = None, moe_grouped: bool = False) -> dict:
     """One cell traced down the memory ladder until its peak fits the
     card: (1) more grad accumulation while the per-chunk batch still
     divides the FULL dp extent (pod x data), (2) tighter remat, (3)
@@ -274,7 +279,8 @@ def ladder(arch: str, shape: str, mesh, microbatch: int | None = None,
     if mb is None and kind == "train":
         mb = 8
     remat, moments = "dots", "fp32"
-    rec = lower_cell(arch, shape, mesh, microbatch=mb, n_layers=n_layers)
+    rec = lower_cell(arch, shape, mesh, microbatch=mb, n_layers=n_layers,
+                     moe_grouped=moe_grouped)
     sizes = mesh_axes(mesh)
     dp = sizes.get("data", 1) * sizes.get("pod", 1)
     while (kind == "train"
@@ -293,7 +299,7 @@ def ladder(arch: str, shape: str, mesh, microbatch: int | None = None,
               f"moments={moments}", flush=True)
         rec = lower_cell(arch, shape, mesh, microbatch=mb,
                          remat_policy=remat, moments=moments,
-                         n_layers=n_layers)
+                         n_layers=n_layers, moe_grouped=moe_grouped)
     rec["microbatch"] = mb
     rec["remat_policy"] = remat
     rec["moments"] = moments
@@ -301,10 +307,12 @@ def ladder(arch: str, shape: str, mesh, microbatch: int | None = None,
 
 
 def _run_on(mesh, mesh_name: str, cells, out_dir: str, force: bool,
-            microbatch: int | None, n_layers: int | None) -> list[dict]:
+            microbatch: int | None, n_layers: int | None,
+            moe_grouped: bool) -> list[dict]:
     results = []
     for arch, shape, ok, why in cells:
-        tag = f"{arch}__{shape}__{mesh_name}"
+        tag = f"{arch}__{shape}__{mesh_name}" + (
+            "__grouped" if moe_grouped else "")
         path = os.path.join(out_dir, tag + ".json")
         if not ok:
             print(f"SKIP {tag}: {why}")
@@ -317,7 +325,7 @@ def _run_on(mesh, mesh_name: str, cells, out_dir: str, force: bool,
         print(f"LOWER {tag} ...", flush=True)
         try:
             rec = ladder(arch, shape, mesh, microbatch=microbatch,
-                         n_layers=n_layers)
+                         n_layers=n_layers, moe_grouped=moe_grouped)
             rec["tag"] = tag
             with open(path, "w") as fh:
                 json.dump(rec, fh, indent=1)
@@ -350,6 +358,8 @@ def main() -> None:
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut every cell's depth (cut_depth); each traced "
                          "layer costs seconds of host time")
+    ap.add_argument("--moe-grouped", action="store_true",
+                    help="the MoE's grouped dispatch (tags end __grouped)")
     args = ap.parse_args()
 
     if args.arch in (None, "all") and args.shape in (None, "all"):
@@ -365,7 +375,8 @@ def main() -> None:
                 cells.append((a, s, ok, why))
     meshes = ["pod", "pod2"] if args.mesh == "both" else [args.mesh]
     results = run_cells(cells, meshes, args.out, args.force,
-                        microbatch=args.microbatch, n_layers=args.n_layers)
+                        microbatch=args.microbatch, n_layers=args.n_layers,
+                        moe_grouped=args.moe_grouped)
     print(f"\n{len(results)} cells recorded in {args.out}")
 
 

@@ -6,6 +6,7 @@ axes' placements; with no mesh each returns its input itself.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -15,7 +16,7 @@ from torch import nn
 from .common import ModelConfig, dense_init, frozen
 from .kernels_glue import flash_attention
 from .layers import apply_rope, rope_freqs
-from .sharding import get_rules, mesh_axes
+from .sharding import get_rules, mesh_axes, on_shards
 
 
 class Attention(nn.Module):
@@ -65,10 +66,18 @@ def project_heads(x: torch.Tensor, w: torch.Tensor, r, axes: tuple
     heads over a 16-way model axis).  The flattened weight is pinned, so
     its gradient comes back in its placements before the backward
     unflattens it."""
-    b, s, _ = x.shape
     d, h, hd = w.shape
-    y = torch.matmul(x, r.pin(w.reshape(d, h * hd)))
-    return r.constrain(y, *axes, shape=(b, s, h, hd)).view(b, s, h, hd)
+    return split_heads(torch.matmul(x, r.pin(w.reshape(d, h * hd))), h, r,
+                       axes)
+
+
+def split_heads(y: torch.Tensor, n_heads: int, r, axes: tuple
+                ) -> torch.Tensor:
+    """y (B, S, H·hd) -> (B, S, H, hd), placed by the logical ``axes``
+    before the heads are unflattened (see :func:`project_heads`)."""
+    b, s, n = y.shape
+    shape = (b, s, n_heads, n // n_heads)
+    return r.constrain(y, *axes, shape=shape).view(shape)
 
 
 def project_out(out: torch.Tensor, wo: torch.Tensor, r) -> torch.Tensor:
@@ -146,6 +155,65 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return KVCache(k, v, 0)
 
 
+def _with_cache(eq: str, x: torch.Tensor, cache: torch.Tensor, r
+                ) -> torch.Tensor:
+    """``einsum(eq, x, cache)`` of x (B, Hkv, G, ·) and a cache (B, Hkv,
+    S, hd) over their batch and kv-head dims, run on each rank's shards
+    under a mesh: DTensor lowers it by flattening those two dims, which
+    torch 2.11 refuses when both are sharded.  The cache's placements
+    lead; x follows it along the batch and the kv heads.  A cache split
+    along S (split-K decode) leaves the scores split along their last
+    dim, and makes the product with the probabilities (x's last dim, S)
+    a partial sum."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if r.mesh is None or not isinstance(cache, DTensor):
+        return torch.einsum(eq, x, cache)
+    contract_seq = eq.split(",")[0][-1] == "s"
+    x_in, out = [], []
+    for p in cache.placements:
+        if isinstance(p, Shard) and p.dim == 2:
+            x_in.append(Shard(3) if contract_seq else Replicate())
+            out.append(Partial() if contract_seq else Shard(3))
+        else:
+            x_in.append(p)
+            out.append(p)
+    return on_shards(functools.partial(torch.einsum, eq), r.mesh, (x, cache),
+                     [x_in, list(cache.placements)], out)
+
+
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, length: int, r
+                ) -> None:
+    """``cache[:, :, length] = new`` (cache (B, Hkv, S, hd), new (B, Hkv,
+    hd)) in place.  Under a mesh that splits S (split-K decode) only the
+    rank whose shard holds the slot writes it, on its local shard:
+    DTensor would index the slot on a gathered copy, and the cache would
+    keep its old slot."""
+    from torch.distributed.tensor import Replicate, Shard
+    split = [i for i, p in enumerate(getattr(cache, "placements", ()))
+             if isinstance(p, Shard) and p.dim == 2]
+    if r.mesh is None or not split:
+        cache[:, :, length] = new
+        return
+    # the slot's rank along each mesh dim that splits S, major to minor
+    # (DTensor's order), and its index in that rank's shard
+    owner, at, size = [], length, cache.shape[2]
+    for i in split:
+        per = -(-size // r.mesh.size(i))
+        owner.append(at // per)
+        at, size = at % per, per
+    mine = [r.mesh.get_coordinate()[i] for i in split] == owner
+
+    def write(local, new):
+        if mine:
+            local[:, :, at] = new
+        return local
+
+    new_in = [Replicate() if i in split else p
+              for i, p in enumerate(cache.placements)]
+    on_shards(write, r.mesh, (cache, new), [list(cache.placements), new_in],
+              list(cache.placements))
+
+
 def attention_decode(params: Attention, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
                      length: int, cfg: ModelConfig
@@ -165,8 +233,8 @@ def attention_decode(params: Attention, x: torch.Tensor,
     cache_v = r.constrain(cache_v, "batch", "kv_heads", "kv_seq", None)
     positions = torch.full((1,), length, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions)
-    cache_k[:, :, length] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, :, length] = v[:, 0].to(cache_v.dtype)
+    _write_slot(cache_k, k[:, 0].to(cache_k.dtype), length, r)
+    _write_slot(cache_v, v[:, 0].to(cache_v.dtype), length, r)
     group = cfg.n_heads // cfg.n_kv_heads
     # the heads whole before they are grouped: DTensor cannot regroup a
     # head dim whose shards the kv heads do not divide
@@ -178,14 +246,13 @@ def attention_decode(params: Attention, x: torch.Tensor,
     # the reference multiplies cache-typed operands with fp32
     # accumulation; a matmul in the cache type would round its output,
     # so the operands are widened (a transient copy per layer)
-    logits = torch.einsum("bhgk,bhsk->bhgs",
-                          qg.to(cache_k.dtype).float(),
-                          cache_k.float()) * scale
+    logits = _with_cache("bhgk,bhsk->bhgs", qg.to(cache_k.dtype).float(),
+                         cache_k.float(), r) * scale
     mask = torch.arange(s_max, device=x.device) <= length
     logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgs,bhsk->bhgk",
-                       probs.to(cache_v.dtype).float(), cache_v.float())
+    out = _with_cache("bhgs,bhsk->bhgk", probs.to(cache_v.dtype).float(),
+                      cache_v.float(), r)
     out = out.reshape(b, 1, cfg.n_heads, cfg.hd).to(cfg.dtype)
     y = project_out(out, params.wo.to(cfg.dtype), r)
     return r.constrain(y, "batch", None, "embed_act"), cache_k, cache_v

@@ -87,5 +87,8 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     r = get_rules()
     # the sequence-parallel residual is gathered before the product
     x = r.constrain(x, "batch", "seq", "embed_act")
-    logits = torch.einsum("bsd,vd->bsv", x.float(), table.float())
+    # the table pinned, so its gradient comes back in its placements: a
+    # tied table's other share (the lookup's) arrives in them, and torch
+    # 2.11 cannot add a split share into a partial sum
+    logits = torch.einsum("bsd,vd->bsv", x.float(), r.pin(table).float())
     return r.constrain(logits, "batch", "seq", "vocab_act")

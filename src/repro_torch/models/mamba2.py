@@ -21,7 +21,7 @@ from torch import nn
 from .common import ModelConfig, dense_init, frozen
 from .layers import rms_norm
 from .sharding import get_rules
-from .ssd import chunked_linear_scan, linear_scan_step
+from .ssd import decode_scan_step, sharded_scan
 
 
 def _dims(cfg: ModelConfig):
@@ -89,6 +89,8 @@ class MambaCache(NamedTuple):
 def _project(params: MambaBlock, x: torch.Tensor, cfg: ModelConfig):
     """ln -> in_proj -> (z, [x|B|C], dt_raw)."""
     d_inner, h, _, n = _dims(cfg)
+    # the sequence-parallel residual is gathered before the block
+    x = get_rules().constrain(x, "batch", "seq", "embed_act")
     hx = rms_norm(x, params.ln.to(cfg.dtype), cfg.norm_eps)
     proj = torch.einsum("bsd,dk->bsk", hx, params.w_in.to(cfg.dtype))
     z, xs, bc, dt_raw = torch.split(proj, [d_inner, d_inner, 2 * n, h],
@@ -127,7 +129,7 @@ def mamba_fwd(params: MambaBlock, x: torch.Tensor, cfg: ModelConfig, *,
     kq_c = cmat[:, :, None, :].expand(b, s, h, n)
     r = get_rules()
     xdt = r.constrain(xdt, "batch", None, "heads", None)
-    y, _ = chunked_linear_scan(kq_c, kq_b, xdt, log_decay, chunk=chunk)
+    y = sharded_scan(kq_c, kq_b, xdt, log_decay, chunk=chunk)
     y = y + params.D[None, None, :, None] * xh.float()
     out = _output(params, y.reshape(b, s, d_inner), z, cfg)
     return r.constrain(out, "batch", "seq", "embed_act")
@@ -164,7 +166,7 @@ def mamba_step(params: MambaBlock, x: torch.Tensor, cache: MambaCache,
     xdt = xh.float() * dt[..., None]
     kb = bmat[:, 0, None, :].expand(b, h, n)
     kc = cmat[:, 0, None, :].expand(b, h, n)
-    y, ssd_new = linear_scan_step(kc, kb, xdt, log_decay, cache.ssd)
+    y, ssd_new = decode_scan_step(kc, kb, xdt, log_decay, cache.ssd)
     y = y + params.D[None, :, None] * xh.float()
     out = _output(params, y.reshape(b, 1, d_inner), z, cfg)
     return out, MambaCache(conv=window[:, 1:].to(cfg.dtype), ssd=ssd_new)

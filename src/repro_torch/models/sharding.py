@@ -229,6 +229,32 @@ class ShardingRules:
         return x.redistribute(self.mesh, x.placements)
 
 
+def is_dtensor(x: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def on_shards(fn, mesh: Any, args: tuple, in_placements: list,
+              out_placements, in_grad_placements: list | None = None):
+    """``fn`` run on each rank's local shards of the DTensors ``args``,
+    each redistributed to its ``in_placements`` first; the output is
+    placed by ``out_placements`` (``local_map``).  For work that is
+    local to a shard by construction, for which DTensor has no strategy
+    or would move data at every step.  ``in_grad_placements`` names the
+    placements of an input's gradient where they are not its own (a
+    replicated input whose local gradients are each rank's partial
+    sum)."""
+    from torch.distributed.tensor.experimental import local_map
+    args = tuple(a.redistribute(mesh, p) for a, p in zip(args,
+                                                         in_placements))
+    return local_map(
+        fn, out_placements=out_placements,
+        in_placements=tuple(map(tuple, in_placements)),
+        in_grad_placements=(None if in_grad_placements is None else
+                            tuple(map(tuple, in_grad_placements))),
+        device_mesh=mesh)(*args)
+
+
 def make_rules(mesh: Any | None = None,
                overrides: Mapping[str, str | tuple[str, ...] | None] | None
                = None) -> ShardingRules:

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from .sharding import get_rules, is_dtensor, on_shards
+
 
 def segsum(a: torch.Tensor) -> torch.Tensor:
     """(..., Q) log-decays -> (..., Q, Q) lower-tri cumulative sums.
@@ -93,6 +95,43 @@ def linear_scan_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          v.float())
     y = torch.einsum("bhn,bhnp->bhp", q.float(), h_new)
     return y, h_new
+
+
+def sharded_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_a: torch.Tensor, *, chunk: int = 64) -> torch.Tensor:
+    """:func:`chunked_linear_scan`'s y, run on each rank's shards under a
+    mesh: every sequence and head recurs on its own (the batch and the
+    heads are the only split dims), where DTensor would run the scan's
+    5- and 6-dim einsums op by op (torch 2.11 refuses their flattens of
+    two split dims; each costs host time a chunk).  The scan itself with
+    no mesh."""
+    r = get_rules()
+    args = (q, k, v, log_a)
+
+    def scan(q, k, v, log_a):
+        return chunked_linear_scan(q, k, v, log_a, chunk=chunk)[0]
+
+    if r.mesh is None or not is_dtensor(v):
+        return scan(*args)
+    heads = [r.placements(a.shape, "batch", None, "heads", None)
+             for a in args]
+    return on_shards(scan, r.mesh, args, heads, heads[2])
+
+
+def decode_scan_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     log_a: torch.Tensor, h: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`linear_scan_step`, run on each rank's shards under a mesh:
+    every sequence and head steps on its own, and DTensor's einsums over
+    the batch and heads flatten both dims, which torch 2.11 refuses when
+    both are split.  The step itself with no mesh."""
+    r = get_rules()
+    args = (q, k, v, log_a, h)
+    if r.mesh is None or not is_dtensor(h):
+        return linear_scan_step(*args)
+    heads = [r.placements(a.shape, "batch", "heads") for a in args]
+    return on_shards(linear_scan_step, r.mesh, args, heads,
+                     (heads[2], heads[4]))
 
 
 def reference_scan(q, k, v, log_a, h0=None):

@@ -21,9 +21,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .attention import (Attention, _project, _qkv, attention_decode,
-                        attention_fwd, init_attention, project_heads,
-                        project_out)
+from .attention import (Attention, _project, _qkv, _with_cache,
+                        attention_decode, attention_fwd, init_attention,
+                        project_heads, project_out)
 from .common import ModelConfig, frozen
 from .kernels_glue import flash_attention
 from .layers import embed_tokens, init_embedding, layer_norm, unembed
@@ -146,7 +146,10 @@ def whisper_forward(params: Whisper, cfg: ModelConfig, *,
                     frames: torch.Tensor, tokens: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     dt = cfg.dtype
-    ctx = encode(params, cfg, frames)
+    # the encoded audio gathered once for every layer's cross-attention,
+    # so each layer's share of its gradient comes back in one placement
+    ctx = get_rules().constrain(encode(params, cfg, frames), "batch", "seq",
+                                "embed_act")
     x = _embed(params, tokens, dt)
 
     def body(x, ctx, layer):
@@ -243,11 +246,11 @@ def whisper_decode_step(params: Whisper, cfg: ModelConfig,
         q = project_heads(h, layer.xattn.wq.to(dt), r,
                           ("batch", None, None, None))
         qg = q.reshape(b, cfg.n_kv_heads, group, cfg.hd)
-        logits = torch.einsum("bhgk,bhsk->bhgs",
-                              qg.to(xk.dtype).float(), xk.float()) * scale
+        logits = _with_cache("bhgk,bhsk->bhgs", qg.to(xk.dtype).float(),
+                             xk.float(), r) * scale
         probs = torch.softmax(logits, dim=-1)
-        o = torch.einsum("bhgs,bhsk->bhgk",
-                         probs.to(xv.dtype).float(), xv.float())
+        o = _with_cache("bhgs,bhsk->bhgk", probs.to(xv.dtype).float(),
+                        xv.float(), r)
         o = o.reshape(b, 1, cfg.n_heads, cfg.hd)
         x = x + project_out(o.to(dt), layer.xattn.wo.to(dt), r)
         h = _ln(x, layer.ln2, cfg.norm_eps, dt)

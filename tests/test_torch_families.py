@@ -202,14 +202,42 @@ def _moe_pair(jcfg, tcfg, seed=0):
     return jp, tp
 
 
-@pytest.mark.parametrize("kw", [
-    dict(), dict(moe_grouped=True), dict(n_shared_experts=1),
-    dict(top_k=1, capacity_factor=0.1), dict(n_experts=8, top_k=3),
-], ids=["flat", "grouped", "shared_expert", "capacity_drop", "e8_k3"])
-def test_moe_fwd_matches_jax(kw):
+def _pin_groups(monkeypatch, g):
+    """The grouped dispatch's group count pinned to ``g`` in both
+    packages (each reads it from its rules' mesh: 1 with none)."""
+    for mod in (jax_moe_mod, moe_mod):
+        monkeypatch.setattr(mod, "_dp_extent", lambda r: g)
+
+
+GROUPED = dict(moe_grouped=True)
+
+
+@pytest.mark.parametrize("kw,g,shape", [
+    (dict(), 1, (2, 16)), (GROUPED, 1, (2, 16)),
+    (dict(n_shared_experts=1), 1, (2, 16)),
+    (dict(top_k=1, capacity_factor=0.1), 1, (2, 16)),
+    (dict(n_experts=8, top_k=3), 1, (2, 16)),
+    (GROUPED, 2, (2, 16)), (GROUPED, 4, (2, 16)),
+    (dict(GROUPED, n_shared_experts=1), 2, (2, 16)),
+    (dict(GROUPED, n_shared_experts=1), 4, (2, 16)),
+    (dict(GROUPED, top_k=1, capacity_factor=0.1), 2, (2, 16)),
+    (dict(GROUPED, top_k=1, capacity_factor=0.1), 4, (2, 16)),
+    (dict(GROUPED, n_experts=8, top_k=3), 2, (2, 16)),
+    (dict(GROUPED, n_experts=8, top_k=3), 4, (2, 16)),
+    # 6 tokens: g = 4 halves to 2
+    (GROUPED, 4, (1, 6)),
+], ids=["flat", "grouped", "shared_expert", "capacity_drop", "e8_k3",
+        "grouped_g2", "grouped_g4", "shared_expert_g2", "shared_expert_g4",
+        "capacity_drop_g2", "capacity_drop_g4", "e8_k3_g2", "e8_k3_g4",
+        "g4_halves_to_2"])
+def test_moe_fwd_matches_jax(monkeypatch, kw, g, shape):
+    """Output and aux against the reference's, flat and grouped; the
+    grouped dispatch at the reference's group count ``g``."""
+    _pin_groups(monkeypatch, g)
     jcfg, tcfg = _moe_cfg(**kw)
     jp, tp = _moe_pair(jcfg, tcfg)
-    x = np.random.default_rng(0).normal(size=(2, 16, 16)).astype(np.float32)
+    x = np.random.default_rng(0).normal(size=shape + (16,)).astype(
+        np.float32)
     want, jaux = jax_moe_mod.moe_fwd(jp, jnp.asarray(x), jcfg)
     got, aux = moe_fwd(tp, _t(x), tcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
@@ -217,13 +245,32 @@ def test_moe_fwd_matches_jax(kw):
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
 
 
-@pytest.mark.parametrize("grouped", [False, True])
-def test_moe_dispatch_chunks_match_jax(monkeypatch, grouped):
+def test_grouped_dispatch_is_the_flat_one_per_group(monkeypatch):
+    """At g = 4 the grouped dispatch equals the flat dispatch applied to
+    each quarter of the tokens on its own (each with its own capacity),
+    and its aux is the flat aux over all tokens."""
+    _, tcfg = _moe_cfg(moe_grouped=True, capacity_factor=0.5)
+    _, tp = _moe_pair(*_moe_cfg(capacity_factor=0.5))
+    x = _t(np.random.default_rng(3).normal(size=(4, 8, 16)).astype(
+        np.float32))
+    _pin_groups(monkeypatch, 4)
+    got, aux = moe_fwd(tp, x, tcfg)
+    flat = dataclasses.replace(tcfg, moe_grouped=False)
+    want = torch.cat([moe_fwd(tp, q[None], flat)[0] for q in x])
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(aux, moe_fwd(tp, x, flat)[1], rtol=1e-6,
+                               atol=0)
+
+
+@pytest.mark.parametrize("grouped,g", [(False, 1), (True, 1), (True, 2)],
+                         ids=["False", "True", "grouped_g2"])
+def test_moe_dispatch_chunks_match_jax(monkeypatch, grouped, g):
     """Past ``DISPATCH_CHUNK_TOKENS`` tokens the dispatch runs in
     sequence chunks, each with its own capacity: the constant set to 8
     in both packages gives 4 chunks of 8 tokens here."""
     for mod in (jax_moe_mod, moe_mod):
         monkeypatch.setattr(mod, "DISPATCH_CHUNK_TOKENS", 8)
+    _pin_groups(monkeypatch, g)
     jcfg, tcfg = _moe_cfg(moe_grouped=grouped)
     jp, tp = _moe_pair(jcfg, tcfg, seed=1)
     x = np.random.default_rng(1).normal(size=(2, 16, 16)).astype(np.float32)

@@ -215,3 +215,20 @@ def test_constrain_returns_its_input_without_a_mesh():
         # a plain tensor is left alone under a mesh too
         assert make_rules(mesh).constrain(x, "batch", "seq", None) is x
         assert make_rules(mesh).pin(x) is x
+
+
+def test_models_on_a_gloo_mesh_equal_one_device():
+    """The port's models under a real 2 × 2 (and 1 × 4) mesh of 4 gloo
+    ranks compute what they compute on one device: both MoE dispatches'
+    loss and gradients, the decode step with the kv heads or the cache's
+    sequence split, and xlstm's loss and gradients
+    (``torch_mesh_worker``)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    import torch_mesh_worker
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.spawn(torch_mesh_worker.run, args=(port,), nprocs=4)

@@ -41,9 +41,11 @@ from repro.optim import AdamWConfig as JaxAdamWConfig
 from repro.optim import adamw_update as jax_adamw_update
 from repro.optim import init_opt_state as jax_init_opt_state
 from repro.training import make_train_step as jax_make_train_step
+import repro.models.moe as jax_moe_mod
 import repro.training.train_step as jax_train_step_module
 
 import repro_torch.kernels.flash_attention.ops as flash_ops
+import repro_torch.models.moe as moe_mod
 from repro_torch.configs import ARCH_IDS, get_config, smoke_batch
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.models import build_model
@@ -121,11 +123,23 @@ def _reference_step_with_grads(monkeypatch, jmodel, jcfg):
     return jax_make_train_step(jmodel, jcfg)
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
-def test_train_step_matches_reference(arch, monkeypatch):
-    jmodel = jax_build_model(jax_get_config(arch, smoke=True))
+@pytest.mark.parametrize("arch,groups", [(a, None) for a in ARCH_IDS]
+                         + [("qwen3-moe-235b-a22b", 2)],
+                         ids=ARCH_IDS + ["qwen3-moe-grouped-g2"])
+def test_train_step_matches_reference(arch, groups, monkeypatch):
+    """``groups``: the MoE's grouped dispatch at that group count, pinned
+    in both packages (each reads it from its rules' mesh)."""
+    jcfg_model = jax_get_config(arch, smoke=True)
+    cfg = None
+    if groups:
+        for mod in (jax_moe_mod, moe_mod):
+            monkeypatch.setattr(mod, "_dp_extent", lambda r: groups)
+        jcfg_model = dataclasses.replace(jcfg_model, moe_grouped=True)
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  moe_grouped=True)
+    jmodel = jax_build_model(jcfg_model)
     jparams = jax.tree.map(jnp.asarray, _weights(arch))
-    model, params, opt = _port(arch)
+    model, params, opt = _port(arch, cfg)
     batch = smoke_batch(model.cfg, batch=2, seq=8)
     loss, grads = _port_grads(model, params, batch)
     jcfg = JaxAdamWConfig(**OPT)
