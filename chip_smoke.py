@@ -208,6 +208,26 @@ Phases, each fatal on failure:
       granite-8b ``decode_32k``, whisper-small ``train_4k`` and
       ``decode_32k``): each one's peak, roofline terms, collectives and
       trace seconds; any failure is fatal.
+11. the sharded chain (Savu's MPI mode): ``standard_chain(n_det=2560,
+    n_angles=1800, n_rows=16)`` (1800 angles: 1801 is prime, and 1, 2,
+    4 and 8 slots divide 1800), seed 0, on ``CudaTransport`` as the
+    one-card reference, then on ``ShardedTransport`` over 4 slots of
+    the card and, on a host with two or more cards, over every card,
+    fused and unfused, each slot set run once untimed first; each
+    reconstruction held against the one-card run (rtol 1e-3, atol
+    1e-4) with its max abs difference, and where that is not 0 each
+    step's difference, carried and its own (fed the one-card run's
+    input); the kernels' counts are set to 0 just before each run and
+    must read one launch of each kernel per slot (per step, from the
+    spans, unfused); the all-to-all must move (n − 1)/n of the fp32
+    corrected stack; the ring removal's step, whose input is re-split,
+    runs under ``torch.profiler`` and must copy nothing through the host
+    (memcpy and ``torch.cat`` kernels recorded); then a gang of the
+    scan's two 8-row bands through ``PipelineScheduler`` on a sharded
+    transport factory over the 4 slots: one gang, no fallback, one
+    launch of each kernel per slot, each member against its one-card
+    run.  One ``{"sharded_chain": ...}`` line with the card's name and
+    power limit.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (the
 correction row also gives the gang launch, ``batched_*``, and the
@@ -219,8 +239,9 @@ last line is ``{"ok": true, "device": {...}}``.  Phases 3a-3e print one
 ``{"flash_attention_families": [...]}`` line, phases 7 and 8 one
 ``{"families": ...}`` and one ``{"family_parity": ...}`` line, phase 9
 one ``{"train": ...}``, ``{"train_parity": ...}`` and
-``{"train_resume": ...}`` line, phase 10 its three lines, each with the
-card's name and power limit.
+``{"train_resume": ...}`` line, phase 10 its three lines and phase 11
+its ``{"sharded_chain": ...}`` line, each with the card's name and
+power limit.
 Every bound is computed from the kernels' own ``cost()`` counts, the
 numbers the service's process spans carry.  Without a CUDA device,
 or without the repository's ``src/repro_torch`` beside this file, it
@@ -379,6 +400,13 @@ DRYRUN_CELLS = [
     ("whisper-small", "train_4k", 2, {"microbatch": 8}),
     ("whisper-small", "decode_32k", 2, {}),
 ]
+#: phase 11: the chain at the main width on slots, with 1800 angles: 1801
+#: is prime, and by the reference's rule (the split must divide) 1, 2, 4
+#: and 8 slots all divide 1800; the slots on one card, and the gang's
+#: members (the scan's two 8-row bands, as phase 3a's)
+SHARDED = {"n_det": 2560, "n_angles": 1800, "n_rows": 16}
+SHARDED_SLOTS = 4
+SHARDED_GANG = {"jobs": 2, "n_rows": 8}
 #: phase 9b: train steps of each smoke config, card against CPU
 TRAIN_PARITY_STEPS = 2
 #: phase 9c: launch.train killed once step_<kill_after> is published
@@ -1921,6 +1949,235 @@ def dryrun_phase(smi: str) -> dict:
         "phase_s": time.perf_counter() - t0}
 
 
+# phase 11: the sharded chain
+def sharded_phase(dev, smi: str, compare) -> dict:
+    """11: ``standard_chain`` at ``SHARDED`` on one card, then on
+    ``ShardedTransport`` over ``SHARDED_SLOTS`` slots of the card and
+    over every card when there are two or more, fused and unfused, each
+    held against the one-card run; the all-to-all's copies under the
+    profiler; a gang of ``SHARDED_GANG`` through ``PipelineScheduler`` on
+    the slots against each member's one-card run.  Returns the phase's
+    numbers; fails on any check."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from repro_torch.core import (CudaTransport, PluginRunner,
+                                  ShardedTransport)
+    from repro_torch.core.transport import to_tensor
+    from repro_torch.kernels.backproject.kernel import backproject_cuda
+    from repro_torch.kernels.correction.kernel import correct_cuda
+    from repro_torch.kernels.sino_filter.kernel import scale_spectrum_cuda
+    from repro_torch.service import CompileCache, JobQueue, PipelineScheduler
+    from repro_torch.tomo import (ParallelGeometry, phantom_stack,
+                                  simulate_raw_scan, standard_chain)
+
+    t_phase = time.perf_counter()
+    wrappers = {"correction": correct_cuda,
+                "spectrum_scale": scale_spectrum_cuda,
+                "backprojection": backproject_cuda}
+    n_det, n_ang, n_rows = (SHARDED["n_det"], SHARDED["n_angles"],
+                            SHARDED["n_rows"])
+    t0 = time.perf_counter()
+    scan = simulate_raw_scan(phantom_stack(n_det, n_rows),
+                             ParallelGeometry(n_ang, n_det, n_rows),
+                             seed=0, device=dev)
+    simulate_s = time.perf_counter() - t0
+    stack_bytes = n_ang * n_rows * n_det * 4     # the fp32 corrected stack
+
+    def chain(scan, rows=n_rows):
+        pl = standard_chain(n_det=n_det, n_angles=n_ang, n_rows=rows)
+        pl.entries[0].params["scan"] = scan
+        return pl
+
+    def run(pl, transport, fuse=False):
+        """One run with every kernel's count set to 0 just before."""
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = PluginRunner(pl, transport, fuse=fuse)
+        r.run()
+        wall = time.perf_counter() - t0
+        return r, wall, {k: w.launches for k, w in wrappers.items()}
+
+    def step_diffs(devices) -> dict:
+        """Where the slots' reconstruction differs from one card's: each
+        step's output with both chains run through (``carried``), and
+        each step on the slots fed the one-card run's input to it
+        (``own``: the steps whose own arithmetic depends on the split);
+        max abs differences."""
+        out: dict = {"carried": {}, "own": {}}
+        one_tr, sl_tr = CudaTransport(dev), ShardedTransport(devices)
+        one_r, sl_r = (PluginRunner(chain(scan), one_tr),
+                       PluginRunner(chain(scan), sl_tr))
+        iso_tr = ShardedTransport(devices)
+        iso_r = PluginRunner(chain(scan), iso_tr)
+
+        def result(p):
+            return to_tensor(p.out_data[0].dataset.materialise(), dev)
+
+        while True:
+            groups = [r.begin_step() for r in (one_r, sl_r, iso_r)]
+            if groups[0] is None:
+                break
+            (p1,), (p2,), (p3,) = groups
+            p3.in_data[0].dataset.backing = to_tensor(
+                p1.in_data[0].dataset.materialise(), dev).clone()
+            for tr, p in ((one_tr, p1), (sl_tr, p2), (iso_tr, p3)):
+                tr.run_plugin(p)
+            want = result(p1)
+            out["carried"][p1.name] = float((result(p2) - want).abs().max())
+            out["own"][p1.name] = float((result(p3) - want).abs().max())
+            for r in (one_r, sl_r, iso_r):
+                r.complete_step()
+        return out
+
+    # one untimed run on each slot set first: a card's first use pays
+    # for its context, its cuFFT plans and its peer access
+    run(chain(scan), CudaTransport(dev))
+    one, one_wall, one_launches = run(chain(scan), CudaTransport(dev))
+    if one_launches != {k: 1 for k in wrappers}:
+        fail(f"sharded chain: the one-card run launched {one_launches}")
+    ref = one.datasets["recon"].backing
+    one_card = {"wall_s": one_wall,
+                "process_s": one.profiler.totals("process"),
+                "launches": one_launches}
+    slot_sets = {f"{dev} x {SHARDED_SLOTS}": (dev,) * SHARDED_SLOTS}
+    if torch.cuda.device_count() >= 2:
+        slot_sets[f"all {torch.cuda.device_count()} cards"] = "all"
+    runs = []
+    for label, devices in slot_sets.items():
+        run(chain(scan), ShardedTransport(devices))
+        for fuse in (False, True):
+            tr = ShardedTransport(devices)
+            n = len(tr.slots)
+            r, wall, launches = run(chain(scan), tr, fuse)
+            name = f"sharded chain ({label}, {'fused' if fuse else 'unfused'})"
+            if launches != {k: n for k in wrappers}:
+                fail(f"{name}: launches {launches}, expected {n} of each "
+                     f"(one per slot)")
+            st = tr.stats()
+            if (st["alltoalls"], st["alltoall_bytes"]) != (
+                    1, stack_bytes * (n - 1) // n):
+                fail(f"{name}: all-to-alls {st['alltoalls']} of "
+                     f"{st['alltoall_bytes']} B, expected 1 of "
+                     f"{stack_bytes * (n - 1) // n}")
+            recon = r.datasets["recon"].backing
+            err = compare(f"{name} vs one card", recon.to(dev), ref,
+                          1e-3, 1e-4)
+            rec = {"slots": st["slots"], "fused": fuse, "wall_s": wall,
+                   "process_s": r.profiler.totals("process"),
+                   "max_abs_diff_vs_one_card": err, "launches": launches,
+                   "alltoall_bytes": st["alltoall_bytes"],
+                   "alltoall_s": st["alltoall_s"]}
+            if not fuse:
+                per_step = {e.plugin: {k.split(".", 1)[1]: v
+                                       for k, v in e.extra.items()
+                                       if k.startswith("launches.")}
+                            for e in r.profiler.events
+                            if e.phase == "process"}
+                want = {"dark_flat_correction": {"correction": n},
+                        "ring_removal": {},
+                        "sinogram_filter": {"spectrum_scale": n},
+                        "fbp_recon": {"backprojection": n}}
+                if per_step != want:
+                    fail(f"{name}: launches per step {per_step}, "
+                         f"expected {want}")
+                rec["launches_per_step"] = per_step
+            if err != 0.0 and not fuse:
+                rec["step_diffs"] = step_diffs(devices)
+            runs.append(rec)
+            del r, recon
+            torch.cuda.empty_cache()
+
+    # the all-to-all's copies: the ring removal's step, whose input is
+    # re-split first, under the profiler; nothing may cross the host
+    copies = {}
+    for label, devices in slot_sets.items():
+        tr = ShardedTransport(devices)
+        r = PluginRunner(chain(scan), tr)
+        r.step()                              # the correction
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            r.step()                          # re-split, ring removal
+        events = {e.key: {"count": e.count,
+                          "device_ms": e.self_device_time_total / 1e3}
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA}
+        host = [k for k in events if "HtoD" in k or "DtoH" in k]
+        if host:
+            fail(f"sharded chain ({label}): the all-to-all step copied "
+                 f"through the host: {host}")
+        # between cards a block crosses as a memcpy (PtoP or DtoD); on
+        # one card each slot's torch.cat copies its blocks
+        copies[label] = {
+            "memcpy": {k: v for k, v in events.items()
+                       if k.startswith("Memcpy")},
+            "cat": {k[:60]: v for k, v in events.items() if "Cat" in k},
+            "device_events": sum(v["count"] for v in events.values())}
+        del r, tr
+    torch.cuda.empty_cache()
+
+    # 11b: a gang of two 8-row bands on the slots, one call a step
+    rows_g = SHARDED_GANG["n_rows"]
+    bands = []
+    for j in range(SHARDED_GANG["jobs"]):
+        lo = j * rows_g
+        bands.append({"data": np.ascontiguousarray(
+                          scan["data"][:, lo:lo + rows_g]),
+                      "dark": scan["dark"][lo:lo + rows_g],
+                      "flat": scan["flat"][lo:lo + rows_g],
+                      "mu": scan["mu"],
+                      "truth": scan["truth"][lo:lo + rows_g]})
+    cache = CompileCache()
+    slots = (dev,) * SHARDED_SLOTS
+    q = JobQueue()
+    sched = PipelineScheduler(
+        q, n_workers=1, batch_identical=True,
+        batch_max=SHARDED_GANG["jobs"], compile_cache=cache,
+        transport_factory=lambda job: ShardedTransport(
+            slots, compile_cache=cache))
+    jobs = q.submit_many([chain(b, rows_g) for b in bands])
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    try:
+        sched.start()
+        if not sched.drain(timeout=600):
+            fail("sharded gang: timed out")
+    finally:
+        sched.shutdown()
+    gang_wall = time.perf_counter() - t0
+    gang_launches = {k: w.launches for k, w in wrappers.items()}
+    st = sched.stats()
+    if st["gangs_run"] != 1 or st["gang_fallbacks"]:
+        fail(f"sharded gang: {st['gangs_run']} gangs, "
+             f"{st['gang_fallbacks']} fallbacks; expected 1 and 0")
+    if gang_launches != {k: SHARDED_SLOTS for k in wrappers}:
+        fail(f"sharded gang: launches {gang_launches}, expected "
+             f"{SHARDED_SLOTS} of each (one per slot for the gang)")
+    gang_errs = []
+    for j, (job, band) in enumerate(zip(jobs, bands)):
+        if job.state.value != "done":
+            fail(f"sharded gang: member {j} {job.state.value}: {job.error}")
+        solo, _, _ = run(chain(band, rows_g), CudaTransport(dev))
+        gang_errs.append(compare(
+            f"sharded gang member {j} vs its one-card run",
+            job.runner.datasets["recon"].backing.to(dev),
+            solo.datasets["recon"].backing, 1e-3, 1e-4))
+    return {
+        "card": smi, "chain": SHARDED, "simulate_s": simulate_s,
+        "corrected_stack_bytes": stack_bytes, "one_card": one_card,
+        "runs": runs, "alltoall_copies": copies,
+        "gang": {"jobs": SHARDED_GANG["jobs"], "n_rows_per_job": rows_g,
+                 "slots": SHARDED_SLOTS, "wall_s": gang_wall,
+                 "step_s": jobs[0].runner.profiler.totals("process"),
+                 "launches": gang_launches,
+                 "max_abs_diff_vs_one_card": gang_errs},
+        "phase_s": time.perf_counter() - t_phase}
+
+
 def roof(r: dict) -> dict:
     """A dry-run record's roofline terms."""
     return {k: r["roofline"][k] for k in (
@@ -2764,6 +3021,12 @@ def main() -> None:
     del scan3
     torch.cuda.empty_cache()
     print(json.dumps({"dryrun": dryrun_phase(smi)}), flush=True)
+
+    # -- 11. the sharded chain ---------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"sharded_chain": sharded_phase(dev, smi, compare)}),
+          flush=True)
 
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

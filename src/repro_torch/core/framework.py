@@ -14,8 +14,11 @@ Phases:
      manifest links every intermediate file (paper §III.A).
 
 Fusion (beyond paper): consecutive 1-in/1-out plugins that share a
-driver run as one step on the :class:`CudaTransport`, so intermediates
-stay on the device.
+driver run as one step on a :class:`CudaTransport` or a
+:class:`ShardedTransport`, so intermediates stay on the device (on the
+slots, re-split between members where the patterns change).  Every
+timer records ``devices``, the transport's slot count (1 but on a
+:class:`ShardedTransport`), as the reference records its mesh size.
 
 Streaming (arrival-driven) execution: :meth:`PluginRunner.enable_streaming`
 opens the runner against a growing loader dataset that
@@ -44,8 +47,8 @@ from .dataset import DataSet
 from .plugin import BaseLoader, BasePlugin, BaseSaver, PluginData
 from .process_list import ProcessList
 from .profiler import Profiler
-from .transport import (ChunkedFile, CudaTransport, Transport, to_numpy,
-                        to_tensor, torch_dtype)
+from .transport import (ChunkedFile, CudaTransport, ShardedTensor,
+                        Transport, to_numpy, to_tensor, torch_dtype)
 
 
 class _StreamState:
@@ -99,7 +102,10 @@ class PluginRunner:
         self.transport = transport if transport is not None \
             else CudaTransport("cuda")
         self.profiler = profiler or Profiler()
+        # a ShardedTransport is a CudaTransport: both fuse
         self.fuse = fuse and isinstance(self.transport, CudaTransport)
+        #: the slots each step runs on, recorded on every timer
+        self.devices = len(getattr(self.transport, "slots", (None,)))
         self.output_dir = output_dir
         #: name -> DataSet currently available for processing
         self.datasets: dict[str, DataSet] = {}
@@ -229,7 +235,7 @@ class PluginRunner:
                 # saver) reads this dataset version
                 lu = self._last_use.get(id(pd.dataset))
                 pd.last_use = lu is not None and lu <= self._step_i
-            with self.profiler.timer(p.name, "pre"):
+            with self.profiler.timer(p.name, "pre", self.devices):
                 p.pre_process()
         self._in_step = True
         return group
@@ -240,7 +246,7 @@ class PluginRunner:
         if not self._in_step:
             raise RuntimeError("complete_step without begin_step")
         for p in self._groups[self._step_i]:
-            with self.profiler.timer(p.name, "post"):
+            with self.profiler.timer(p.name, "post", self.devices):
                 p.post_process()
             self._replace(p)
         self._in_step = False
@@ -258,14 +264,15 @@ class PluginRunner:
             # the timer, so its run never counts in the span it annotates
             cost = (self.transport.plugin_cost(p)
                     if hasattr(self.transport, "plugin_cost") else None)
-            with self.profiler.timer(p.name, "process",
+            with self.profiler.timer(p.name, "process", self.devices,
                                      **(cost or {})) as timer, \
                     tally() as launched:
                 self.transport.run_plugin(p)
             timer.span.attrs.update(launched.launch_attrs())
         else:
             label = "+".join(p.name for p in group)
-            with self.profiler.timer(label, "process", fused=True):
+            with self.profiler.timer(label, "process", self.devices,
+                                     fused=True):
                 self.transport.run_fused(group)
         self.complete_step()
         return True
@@ -332,8 +339,11 @@ class PluginRunner:
 
     def _read_slab(self, ds: DataSet, axis: int, lo: int, hi: int):
         """Frames [lo, hi) along ``axis``: a view of a tensor backing, a
-        host array from a chunked file."""
+        host array from a chunked file, a tensor on the first slot from a
+        sharded backing."""
         b = ds.materialise()
+        if isinstance(b, ShardedTensor):
+            return b.read_region(axis, lo, hi)
         region = self._region(ds, axis, lo, hi)
         if isinstance(b, ChunkedFile):
             return b.read(region)
@@ -342,6 +352,8 @@ class PluginRunner:
     def _write_slab(self, ds: DataSet, axis: int, lo: int, hi: int,
                     values) -> None:
         b = ds.materialise()
+        if isinstance(b, ShardedTensor):
+            return b.write_region(axis, lo, hi, values)
         region = self._region(ds, axis, lo, hi)
         if isinstance(b, ChunkedFile):
             b.write(region, to_numpy(values))
@@ -519,11 +531,12 @@ class PluginRunner:
                     if hi <= lo:
                         continue
                     if (g, j) not in st.begun:
-                        with self.profiler.timer(p.name, "pre"):
+                        with self.profiler.timer(p.name, "pre",
+                                                 self.devices):
                             p.pre_process()
                         st.begun.add((g, j))
                     with self.profiler.timer(p.name, "process",
-                                             window=[lo, hi]):
+                                             self.devices, window=[lo, hi]):
                         self._run_window(p, lo, hi)
                     st.cursors[(g, j)] = hi
                     for pd in p.out_data:
@@ -540,7 +553,8 @@ class PluginRunner:
                                for j in range(len(group))):
                         break
                     for p in group:
-                        with self.profiler.timer(p.name, "post"):
+                        with self.profiler.timer(p.name, "post",
+                                                 self.devices):
                             p.post_process()
                         self._replace(p)
                     self._step_i += 1

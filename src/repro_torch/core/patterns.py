@@ -6,10 +6,12 @@ A *pattern* partitions the dimensions of an N-d dataset into
   * ``slice`` dims — iterated over; the first slice dim is the
     fastest-changing one.
 
-``shard_axes`` is kept as metadata (dim index -> axis name): one card
-has no mesh to shard over, but process lists and datasets carry it.
-:meth:`Pattern.to_frames` / :meth:`Pattern.from_frames` take numpy
-arrays and torch tensors alike.
+:meth:`Pattern.to_spec` places a dataset on a data axis: its first slice
+dim is split over the axis, explicit ``shard_axes`` (dim index -> axis
+name) override that, core dims replicate.  ``ShardedTransport`` splits
+datasets over its slots by this rule, and the dry-runs place them on
+their fake meshes by it.  :meth:`Pattern.to_frames` /
+:meth:`Pattern.from_frames` take numpy arrays and torch tensors alike.
 """
 from __future__ import annotations
 
@@ -134,6 +136,21 @@ class Pattern:
                 for d, i in zip(rest, rest_idx):
                     idx[d] = slice(i, i + 1)
                 yield tuple(idx)
+
+    def to_spec(self, data_axis: str | None = "data") -> tuple:
+        """The spec (one axis name or None per dim) of the canonical
+        layout: the first slice dim on ``data_axis``; explicit
+        ``shard_axes`` entries override or extend it; core dims
+        replicate."""
+        spec: list = [None] * self.ndim
+        if self.slice_dims and data_axis is not None:
+            spec[self.slice_dims[0]] = data_axis
+        for d, ax in self.shard_axes.items():
+            spec[d] = ax
+        return tuple(spec)
+
+    def with_shard_axes(self, shard_axes: Mapping[int, str]) -> "Pattern":
+        return dataclasses.replace(self, shard_axes=dict(shard_axes))
 
 
 def _ndindex(sizes: Sequence[int]) -> Iterator[tuple[int, ...]]:

@@ -10,6 +10,9 @@ Drivers (paper §III.F.1): Savu's CPU driver lets every process run the
 plugin; its GPU driver restricts a plugin to processes that own a GPU.
 Here a :class:`DeviceDriver` names the device types a plugin may run
 on, and a transport refuses a plugin whose driver excludes its device.
+It also names the mesh axes the plugin distributes over, as the JAX
+package's ``MeshDriver`` does: on a ``ShardedTransport`` a plugin with a
+data axis runs on every slot's share, one without runs once, replicated.
 """
 from __future__ import annotations
 
@@ -25,11 +28,17 @@ from .dataset import DataSet
 
 @dataclasses.dataclass(frozen=True)
 class DeviceDriver:
-    """The device types (``torch.device.type``) a plugin may run on."""
+    """The device types (``torch.device.type``) a plugin may run on, and
+    the mesh axes it distributes over (the first is its data axis)."""
     devices: tuple[str, ...] = ("cuda", "cpu")
+    axes: tuple[str, ...] = ("data",)
 
     def allows(self, device: torch.device) -> bool:
         return device.type in self.devices
+
+    @property
+    def data_axis(self) -> str | None:
+        return self.axes[0] if self.axes else None
 
 
 CPU_DRIVER = DeviceDriver(("cuda", "cpu"))

@@ -1,14 +1,19 @@
 """Transports — who moves the data (paper §III.A / §IV).
 
-Three interchangeable backends, selected at runner construction.  Each
-computes on one torch device, ``"cuda"`` unless the caller passes
+Four interchangeable backends, selected at runner construction.  Each
+computes on torch devices, ``"cuda"`` unless the caller passes
 ``device="cpu"``:
 
-* :class:`CudaTransport` — the production mode: datasets live on the
-  device as tensors, each plugin step is built once per step key, and a
-  step receives the whole frame stack at once (every tomo op takes
-  leading dims; a hand-written kernel cannot be vmapped one frame at a
-  time).  Stands in for the JAX package's ``ShardedTransport``.
+* :class:`CudaTransport` — the production mode on one device: datasets
+  live on the device as tensors, each plugin step is built once per step
+  key, and a step receives the whole frame stack at once (every tomo op
+  takes leading dims; a hand-written kernel cannot be vmapped one frame
+  at a time).
+* :class:`ShardedTransport` — Savu's MPI mode over several slots (the
+  cards of the host, or repeats of one device): each dataset is split
+  along its pattern's first slice dim (:meth:`Pattern.to_spec`), every
+  slot runs the built step on its share, and a change of pattern between
+  plugins is an all-to-all between the slots, not a file round trip.
 * :class:`InMemoryTransport` — the paper's "serial on a PC" mode: host
   numpy storage, a loop over groups of ``n_frames`` frames, each group
   moved to the device and back.
@@ -19,6 +24,7 @@ computes on one torch device, ``"cuda"`` unless the caller passes
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -60,8 +66,9 @@ def torch_dtype(dtype) -> torch.dtype:
 
 
 def to_tensor(a, device: torch.device) -> torch.Tensor:
-    """``a`` (tensor or array-like) as a tensor on ``device``."""
-    if isinstance(a, torch.Tensor):
+    """``a`` (tensor, sharded tensor or array-like) as a tensor on
+    ``device``."""
+    if isinstance(a, (torch.Tensor, ShardedTensor)):
         return a.to(device)
     arr = np.ascontiguousarray(a)
     if not arr.flags.writeable:
@@ -73,7 +80,110 @@ def to_numpy(a) -> np.ndarray:
     """``a`` as a host numpy array (``np.asarray`` refuses CUDA tensors)."""
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
+    if isinstance(a, ShardedTensor):
+        return a.numpy()
     return np.asarray(a)
+
+
+def _on(device: torch.device):
+    """``device`` current for the block (a no-op for the CPU)."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+class ShardedTensor:
+    """A dataset's backing on a :class:`ShardedTransport` between steps:
+    one tensor per slot, each the slot's block along ``dim`` (slot order
+    is block order), or each a whole copy when ``dim`` is None
+    (replicated).  ``shape`` and ``dtype`` are the whole's; ``to`` and
+    ``numpy`` gather it with one copy per slot block, never through a
+    copy of the whole on another device first."""
+
+    def __init__(self, shards: Sequence[torch.Tensor], dim: int | None,
+                 devices: Sequence[torch.device]):
+        self.shards = list(shards)
+        self.dim = dim
+        self.devices = tuple(devices)
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        shape = list(self.shards[0].shape)
+        if self.dim is not None:
+            shape[self.dim] = sum(t.shape[self.dim] for t in self.shards)
+        return tuple(shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    def blocks(self) -> list[torch.Tensor]:
+        """The slot blocks whose concatenation along ``dim`` is the
+        whole (one replica when replicated)."""
+        return self.shards[:1] if self.dim is None else self.shards
+
+    def to(self, device) -> torch.Tensor:
+        """The whole as one tensor on ``device``."""
+        parts = [t.to(device) for t in self.blocks()]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, self.dim)
+
+    def numpy(self) -> np.ndarray:
+        return self.to("cpu").numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a if dtype is None else a.astype(dtype)
+
+    def leading_blocks(self) -> list[torch.Tensor]:
+        """Tensors whose concatenation along dim 0 is the whole, in
+        order: the slot blocks when the split is along dim 0 (or none),
+        else the whole gathered to the host."""
+        if self.dim in (0, None):
+            return self.blocks()
+        return [self.to("cpu")]
+
+    def _spans(self) -> list[tuple[int, int]]:
+        """Each slot block's [lo, hi) along ``dim``."""
+        spans, at = [], 0
+        for t in self.shards:
+            spans.append((at, at + t.shape[self.dim]))
+            at += t.shape[self.dim]
+        return spans
+
+    def read_region(self, axis: int, lo: int, hi: int) -> torch.Tensor:
+        """Entries [lo, hi) along ``axis``, as one tensor on the first
+        slot's device."""
+        if self.dim is None:
+            return self.shards[0].narrow(axis, lo, hi - lo)
+        parts = []
+        for t, (a, b) in zip(self.shards, self._spans()):
+            if axis != self.dim:
+                parts.append(t.narrow(axis, lo, hi - lo))
+            elif max(a, lo) < min(b, hi):
+                parts.append(t.narrow(axis, max(a, lo) - a,
+                                      min(b, hi) - max(a, lo)))
+        parts = [p.to(self.devices[0]) for p in parts]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, self.dim)
+
+    def write_region(self, axis: int, lo: int, hi: int, values) -> None:
+        """Write ``values`` (the whole's entries [lo, hi) along
+        ``axis``) into the slot blocks, in place."""
+        values = to_tensor(values, self.devices[0])
+        if self.dim is None:
+            for t in self.shards:
+                t.narrow(axis, lo, hi - lo).copy_(values)
+            return
+        for t, (a, b) in zip(self.shards, self._spans()):
+            if axis != self.dim:
+                t.narrow(axis, lo, hi - lo).copy_(
+                    values.narrow(self.dim, a, b - a))
+            elif max(a, lo) < min(b, hi):
+                s, e = max(a, lo), min(b, hi)
+                t.narrow(axis, s - a, e - s).copy_(
+                    values.narrow(axis, s - lo, e - s))
+
+    def __repr__(self):
+        return (f"ShardedTensor(shape={self.shape}, dtype={self.dtype}, "
+                f"dim={self.dim}, slots={[str(d) for d in self.devices]})")
 
 
 def _is_array(v) -> bool:
@@ -309,7 +419,7 @@ class InMemoryTransport(Transport):
 
 # ======================================================================
 class CudaTransport(Transport):
-    """Device mode — datasets stay on the device as tensors; each plugin
+    """One-device mode — datasets stay on the device as tensors; each plugin
     step (or fused group) is built once per :meth:`_plugin_key`, with its
     :meth:`~BasePlugin.jit_constants` handed to it moved to the device;
     an input is dropped at its final use (``PluginData.last_use``)."""
@@ -375,7 +485,9 @@ class CudaTransport(Transport):
         out_shapes = [pd.dataset.shape for pd in plugin.out_data]
         out_dtypes = [torch_dtype(pd.dataset.dtype) for pd in plugin.out_data]
 
-        def step(all_consts, members):
+        def step(all_consts, members, shapes=None):
+            # ``shapes``: each member's outputs' shapes when the inputs
+            # are a slot's share rather than the whole datasets
             frames = [[p.to_frames(a) for p, a in zip(in_pats, arrays)]
                       for arrays in members]
             counts = [f[0].shape[0] for f in frames]
@@ -391,7 +503,8 @@ class CudaTransport(Transport):
             per_out = [torch.split(r, counts) for r in res]
             return [tuple(pat.from_frames(parts[j], shp).to(dt)
                           for parts, pat, shp, dt in zip(
-                              per_out, out_pats, out_shapes, out_dtypes))
+                              per_out, out_pats, shapes or out_shapes,
+                              out_dtypes))
                     for j in range(len(members))]
 
         return step
@@ -399,7 +512,7 @@ class CudaTransport(Transport):
     def _plugin_key(self, plugin: BasePlugin,
                     consts: dict | None = None) -> tuple:
         """Step-cache key: plugin static identity, in/out dataset specs,
-        consts structure, driver and device."""
+        consts structure, driver and where the step runs."""
         def pd_meta(pd):
             return (pd.dataset.shape, str(np.dtype(pd.dataset.dtype)),
                     pd.pattern_name, pd.n_frames)
@@ -412,7 +525,11 @@ class CudaTransport(Transport):
         return ("plugin", plugin.cache_signature(),
                 tuple(pd_meta(pd) for pd in plugin.in_data),
                 tuple(pd_meta(pd) for pd in plugin.out_data),
-                cmeta, plugin.driver.devices, str(self.device))
+                cmeta, plugin.driver, self._where())
+
+    def _where(self) -> tuple[str, ...]:
+        """The devices a step runs on, for its key."""
+        return (str(self.device),)
 
     def _device_in(self, plugin: BasePlugin) -> list[torch.Tensor]:
         arrays = []
@@ -428,8 +545,9 @@ class CudaTransport(Transport):
         """Drop device inputs at their final use (the donation rule)."""
         outs = {id(pd.dataset) for p in produced for pd in p.out_data}
         for pd in plugin.in_data:
-            if pd.last_use and id(pd.dataset) not in outs \
-                    and isinstance(pd.dataset.backing, torch.Tensor):
+            if pd.last_use and id(pd.dataset) not in outs and isinstance(
+                    pd.dataset.backing, (torch.Tensor, ShardedTensor)):
+                # every slot's shard goes at once, never one slot's
                 pd.dataset.backing = None
 
     def run_plugin(self, plugin: BasePlugin) -> list[Any]:
@@ -551,23 +669,28 @@ class CudaTransport(Transport):
                  all_consts: list[dict[str, Any]]) -> dict[str, float]:
         with tally(costs=True) as t, FlopCounterMode(display=False) as fc, \
                 _PeakMemory(self.device) as mem:
+            members, shapes = self._measured_inputs(plugins)
             if len(plugins) == 1:
                 p = plugins[0]
                 step = self.compile_cache.get_or_build(
                     self._plugin_key(p, all_consts[0]),
                     lambda: self._plugin_fn(p))
-                outs = step(all_consts[0], *self._device_in(p))
+                outs = step(all_consts[0], *members[0], shapes=shapes)
             else:
                 step = self.compile_cache.get_or_build(
                     ("batch", self._plugin_key(plugins[0], all_consts[0])),
                     lambda: self._batch_fn(plugins[0]))
-                outs = step(all_consts,
-                            [self._device_in(p) for p in plugins])
-            del outs
+                outs = step(all_consts, members, shapes=shapes)
+            del outs, members
         self._sync()
         return {"flops": t.flops + float(fc.get_total_flops()),
                 "bytes": t.bytes, "bytes_accessed": t.bytes,
                 "peak_memory": float(mem.peak)}
+
+    def _measured_inputs(self, plugins: Sequence[BasePlugin]) -> tuple:
+        """The inputs of the step that :meth:`_measure` runs, per
+        plugin, and the outputs' shapes (None: the datasets')."""
+        return [self._device_in(p) for p in plugins], None
 
     def run_fused(self, plugins: Sequence[BasePlugin]) -> list[Any]:
         """Run a linear run of plugins as one step: intermediates stay
@@ -602,6 +725,368 @@ class CudaTransport(Transport):
 
     def stats(self) -> dict[str, Any]:
         return {"compile_cache": self.compile_cache.stats()}
+
+
+# ======================================================================
+def _slot_devices(devices) -> tuple[torch.device, ...]:
+    """A :class:`ShardedTransport`'s slots: ``"all"`` is every visible
+    card in index order; a sequence names each slot's device, repeats
+    allowed.  A device that does not exist raises; none is remapped."""
+    if isinstance(devices, str):
+        if devices != "all":
+            raise ValueError(f"devices is 'all' or a sequence of devices, "
+                             f"got {devices!r}")
+        resolve_device("cuda")
+        return tuple(torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count()))
+    slots = []
+    for d in devices:
+        dev = resolve_device(d)
+        if dev.type == "cuda":
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            if dev.index >= torch.cuda.device_count():
+                raise ValueError(
+                    f"slot {len(slots)}: {dev} does not exist (this host "
+                    f"has {torch.cuda.device_count()} card(s))")
+        slots.append(dev)
+    if not slots:
+        raise ValueError("a ShardedTransport needs at least one slot")
+    if len({d.type for d in slots}) > 1:
+        raise ValueError(f"slots {[str(d) for d in slots]} mix device "
+                         f"types")
+    return tuple(slots)
+
+
+def slots_on(device: str | torch.device = "cuda",
+             n: int | None = None) -> tuple[torch.device, ...]:
+    """The slots the entry points' ``--slots`` names: ``n`` repeats of
+    ``device``; with ``n`` None, every visible card for ``"cuda"`` and
+    one slot otherwise."""
+    dev = resolve_device(device)
+    if n is None:
+        return _slot_devices("all" if dev == torch.device("cuda")
+                             else (dev,))
+    if n < 1:
+        raise ValueError(f"slots must be >= 1, got {n}")
+    return _slot_devices((dev,) * n)
+
+
+def _narrow(a, dim: int, lo: int, n: int):
+    """Entries [lo, lo + n) of ``a`` (array or tensor) along ``dim``."""
+    return a[(slice(None),) * dim + (slice(lo, lo + n),)]
+
+
+class ShardedTransport(CudaTransport):
+    """Savu's MPI mode on several slots: the JAX package's
+    ``ShardedTransport``, with one process driving the slots as the
+    reference's single controller drives its mesh.
+
+    Between steps a dataset is a :class:`ShardedTensor` split along its
+    pattern's first slice dim over the slots (:meth:`Pattern.to_spec` on
+    the plugin driver's data axis).  Every slot runs the plugin's built
+    step (:meth:`CudaTransport._plugin_fn`) on its share, so each kernel
+    launches once per slot, on the slot's device.  Where the next
+    plugin's pattern splits another dim, its input is re-split first:
+    an all-to-all in which each slot sends each other slot its block
+    with ``Tensor.to(device, non_blocking=True)`` (a peer copy between
+    cards, a device-local copy between slots of one card), never through
+    the host.  A plugin with no data axis, or with a dataset its pattern
+    does not split, runs once on the first slot, and its outputs are
+    placed on every slot (the reference's all-``None`` spec).
+
+    ``devices``: ``"all"`` (every visible card, in index order) or a
+    sequence of devices, repeats allowed (``("cuda:0",) * 4`` on one
+    card, ``("cpu",) * 4`` in the tests); slots on one device compute
+    apart exactly as slots on different cards do.  A split that does
+    not divide raises ``ValueError``, as the reference's ``device_put``
+    does.  Streaming windows run on the first slot, where the growing
+    datasets live; barrier steps run sharded.  :meth:`plugin_cost`
+    counts one slot's step, as the reference's cost analysis of an SPMD
+    program is per device."""
+
+    name = "sharded"
+    #: the mesh axis the slots form
+    axis = "data"
+
+    def __init__(self, devices: str | Sequence = "all", compile_cache=None,
+                 cost_analysis: bool = False):
+        self.slots = _slot_devices(devices)
+        super().__init__(self.slots[0], compile_cache, cost_analysis)
+        #: re-splits from one split to another (the all-to-alls, and
+        #: gathers for a replicated step), the bytes that crossed between
+        #: slots, and their seconds (host clock, ending in a synchronise
+        #: of every slot)
+        self.alltoalls = 0
+        self.alltoall_bytes = 0
+        self.alltoall_s = 0.0
+
+    def _where(self) -> tuple[str, ...]:
+        return tuple(str(d) for d in self.slots)
+
+    def _sync(self) -> None:
+        for d in dict.fromkeys(self.slots):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    # -- placement -------------------------------------------------------
+    def _split_dim(self, ds: DataSet, pattern: Pattern,
+                  data_axis: str | None = "data") -> int | None:
+        """The dim of ``ds`` that ``pattern`` splits over the slots (None:
+        replicated); ``data_axis`` is the plugin driver's."""
+        spec = pattern.to_spec(data_axis if data_axis == self.axis
+                               else None)
+        dims = [d for d, ax in enumerate(spec) if ax == self.axis]
+        if len(dims) > 1:
+            raise ValueError(
+                f"dataset {ds.name!r}: pattern {pattern.name!r} puts dims "
+                f"{dims} on the {self.axis!r} axis; at most one may be")
+        if dims and dims[0] in pattern.core_dims:
+            raise ValueError(
+                f"dataset {ds.name!r}: pattern {pattern.name!r} splits "
+                f"core dim {dims[0]}; a slot computes on whole frames")
+        return dims[0] if dims else None
+
+    def _local(self, name: str, shape: Sequence[int],
+               dim: int | None) -> tuple[int, ...]:
+        """A slot's share of ``shape`` split along ``dim``."""
+        shape = tuple(shape)
+        if dim is None:
+            return shape
+        n = len(self.slots)
+        if shape[dim] % n:
+            raise ValueError(
+                f"dataset {name!r}: dim {dim} of size {shape[dim]} does not "
+                f"split over {n} slots (its size should be divisible by "
+                f"{n})")
+        return shape[:dim] + (shape[dim] // n,) + shape[dim + 1:]
+
+    def _scatter(self, a, dim: int | None, name: str) -> ShardedTensor:
+        """A host array or one-device tensor as slot blocks."""
+        local = self._local(name, a.shape, dim)
+        shards = []
+        for j, dev in enumerate(self.slots):
+            block = a if dim is None else _narrow(a, dim, j * local[dim],
+                                                  local[dim])
+            shards.append(to_tensor(block, dev).contiguous())
+        return ShardedTensor(shards, dim, self.slots)
+
+    def _replicate(self, t: torch.Tensor) -> ShardedTensor:
+        return ShardedTensor([t.to(dev) for dev in self.slots], None,
+                             self.slots)
+
+    def _resplit(self, st: ShardedTensor, dim: int | None, name: str,
+                 record: bool = True) -> ShardedTensor:
+        """``st`` split along ``dim`` over the slots.  From one split dim
+        to another this is the all-to-all: slot i's block j goes to slot
+        j.  From replicated each slot cuts its own replica; to
+        replicated every slot gathers every block."""
+        if st.devices != self.slots:          # another transport's slots
+            return self._scatter(st.to(self.device), dim, name)
+        if st.dim == dim:
+            return st
+        local = self._local(name, st.shape, dim)
+        if st.dim is None:
+            return ShardedTensor(
+                [_narrow(t, dim, j * local[dim], local[dim]).contiguous()
+                 for j, t in enumerate(st.shards)], dim, self.slots)
+        t0 = time.perf_counter()
+        moved = 0
+        shards = []
+        for j, dev in enumerate(self.slots):
+            parts = []
+            for i, src in enumerate(st.shards):
+                blk = src if dim is None else _narrow(
+                    src, dim, j * local[dim], local[dim])
+                if i != j:
+                    moved += blk.numel() * blk.element_size()
+                if blk.device != dev:
+                    blk = blk.contiguous().to(dev, non_blocking=True)
+                parts.append(blk)
+            shards.append(torch.cat(parts, st.dim))
+        if record:
+            self._sync()
+            self.alltoalls += 1
+            self.alltoall_bytes += moved
+            self.alltoall_s += time.perf_counter() - t0
+        return ShardedTensor(shards, dim, self.slots)
+
+    def _split(self, ds: DataSet, dim: int | None,
+               record: bool = True) -> ShardedTensor:
+        b = ds.materialise()
+        if isinstance(b, ShardedTensor):
+            return self._resplit(b, dim, ds.name, record)
+        return self._scatter(b, dim, ds.name)
+
+    def device_put(self, ds: DataSet, pattern_name: str | None = None,
+                   data_axis: str = "data") -> ShardedTensor:
+        """Place ``ds`` (host, one device, or slots) onto the slots, split
+        by its pattern ``pattern_name`` (the first if None)."""
+        pat = (ds.get_pattern(pattern_name) if pattern_name
+               else next(iter(ds.patterns.values())))
+        ds.backing = self._split(ds, self._split_dim(ds, pat, data_axis))
+        return ds.backing
+
+    def _layout(self, plugin: BasePlugin) -> tuple[list, list, bool]:
+        """Each input's and output's split dim, and whether the plugin
+        runs on every slot's share (all of its datasets split) or once on
+        the first slot (all replicated)."""
+        da = plugin.driver.data_axis
+        ins = [self._split_dim(pd.dataset, pd.pattern, da)
+               for pd in plugin.in_data]
+        outs = [self._split_dim(pd.dataset, pd.pattern, da)
+                for pd in plugin.out_data]
+        if ins + outs and None not in ins + outs:
+            return ins, outs, True
+        return [None] * len(ins), [None] * len(outs), False
+
+    def _device_in(self, plugin: BasePlugin,
+                   dims: Sequence[int | None] | None = None
+                   ) -> list[ShardedTensor]:
+        if dims is None:
+            dims = self._layout(plugin)[0]
+        arrays = []
+        for pd, dim in zip(plugin.in_data, dims):
+            st = self._split(pd.dataset, dim)
+            if not pd.last_use:
+                pd.dataset.backing = st    # later consumers reuse the split
+            arrays.append(st)
+        return arrays
+
+    def _slot_consts(self, plugin: BasePlugin
+                     ) -> dict[torch.device, dict[str, Any]]:
+        """The plugin's constants replicated to every slot's device."""
+        return {dev: _device_consts(plugin, dev)
+                for dev in dict.fromkeys(self.slots)}
+
+    def _out_shapes(self, plugin: BasePlugin, layout: tuple
+                    ) -> list[tuple[int, ...]]:
+        """A slot's share of each output of a sharded step, after
+        checking that the plugin's ``n_frames`` divides each slot's
+        frames."""
+        dims_in, dims_out, _ = layout
+        m = plugin.in_data[0].n_frames if plugin.in_data else 1
+        if m > 1:
+            pd = plugin.in_data[0]
+            nf = pd.pattern.n_frames(self._local(
+                pd.dataset.name, pd.dataset.shape, dims_in[0]))
+            if nf % m:
+                raise ValueError(
+                    f"sharded transport requires n_frames({m}) | each "
+                    f"slot's frames({nf}) for plugin {plugin.name}")
+        return [self._local(pd.dataset.name, pd.dataset.shape, d)
+                for pd, d in zip(plugin.out_data, dims_out)]
+
+    def _run_step(self, plugin: BasePlugin, step, consts: dict,
+                  arrays: Sequence[ShardedTensor], layout: tuple
+                  ) -> list[ShardedTensor]:
+        """``step`` on every slot's share, or once on the first slot."""
+        _, dims_out, sharded = layout
+        if not sharded:
+            with _on(self.device):
+                outs = step(consts[self.device],
+                            *[a.shards[0] for a in arrays])
+            return [self._replicate(o) for o in outs]
+        shapes = self._out_shapes(plugin, layout)
+        per_slot = []
+        for j, dev in enumerate(self.slots):
+            with _on(dev):
+                per_slot.append(step(consts[dev],
+                                     *[a.shards[j] for a in arrays],
+                                     shapes=shapes))
+        return [ShardedTensor([o[k] for o in per_slot], d, self.slots)
+                for k, d in enumerate(dims_out)]
+
+    def run_plugin(self, plugin: BasePlugin) -> list[Any]:
+        self._check_driver(plugin)
+        layout = self._layout(plugin)
+        arrays = self._device_in(plugin, layout[0])
+        consts = self._slot_consts(plugin)
+        step = self.compile_cache.get_or_build(
+            self._plugin_key(plugin, consts[self.device]),
+            lambda: self._plugin_fn(plugin))
+        outs = self._run_step(plugin, step, consts, arrays, layout)
+        del arrays
+        for pd, o in zip(plugin.out_data, outs):
+            pd.dataset.backing = o
+        self._release(plugin, [plugin])
+        self._sync()
+        return outs
+
+    def run_fused(self, plugins: Sequence[BasePlugin]) -> list[Any]:
+        """A linear run of plugins as one step: each member on the
+        slots, re-split between members where the patterns change (the
+        reference's ``with_sharding_constraint``); intermediates stay on
+        the slots and are never stored on their datasets."""
+        for p in plugins:
+            self._check_driver(p)
+        first, last = plugins[0], plugins[-1]
+        layouts = [self._layout(p) for p in plugins]
+        cur = self._device_in(first, layouts[0][0])
+        all_consts = [self._slot_consts(p) for p in plugins]
+        key = ("fused", tuple(self._plugin_key(p, c[self.device])
+                              for p, c in zip(plugins, all_consts)))
+        steps = self.compile_cache.get_or_build(
+            key, lambda: tuple(self._plugin_fn(p) for p in plugins))
+        for i, (p, step, consts, layout) in enumerate(
+                zip(plugins, steps, all_consts, layouts)):
+            if i:
+                cur = [self._resplit(a, d, pd.dataset.name)
+                       for a, d, pd in zip(cur, layout[0], p.in_data)]
+            cur = self._run_step(p, step, consts, cur, layout)
+        for pd, o in zip(last.out_data, cur):
+            pd.dataset.backing = o
+        self._release(first, plugins)
+        self._sync()
+        return cur
+
+    def run_plugin_batch(self, plugins: Sequence[BasePlugin]) -> None:
+        """Gang execution on the slots: on each slot the members' shares
+        fold into one frame axis, so each kernel launches once per slot
+        for the whole gang.  Raises :class:`GangSignatureMismatch` where
+        :meth:`CudaTransport.run_plugin_batch` does."""
+        all_consts = [self._slot_consts(p) for p in plugins]
+        k0 = self._gang_check(plugins, [c[self.device] for c in all_consts])
+        for p in plugins:
+            self._check_driver(p)
+        step = self.compile_cache.get_or_build(
+            ("batch", k0), lambda: self._batch_fn(plugins[0]))
+        layout = self._layout(plugins[0])
+        dims_in, dims_out, sharded = layout
+        members = [self._device_in(p, dims_in) for p in plugins]
+        shapes = self._out_shapes(plugins[0], layout) if sharded else None
+        per_slot = []
+        for j, dev in enumerate(self.slots if sharded else self.slots[:1]):
+            with _on(dev):
+                per_slot.append(step([c[dev] for c in all_consts],
+                                     [[a.shards[j] for a in m]
+                                      for m in members], shapes=shapes))
+        del members
+        for jm, p in enumerate(plugins):
+            for k, (pd, d) in enumerate(zip(p.out_data, dims_out)):
+                pd.dataset.backing = (
+                    ShardedTensor([o[jm][k] for o in per_slot], d,
+                                  self.slots) if sharded
+                    else self._replicate(per_slot[0][jm][k]))
+            self._release(p, [p])
+        self._sync()
+
+    def _measured_inputs(self, plugins: Sequence[BasePlugin]) -> tuple:
+        """The first slot's share of each input and output: the cost is
+        one slot's step, as the reference's cost analysis of an SPMD
+        program is per device."""
+        layout = self._layout(plugins[0])
+        shapes = self._out_shapes(plugins[0], layout) if layout[2] else None
+        return [[self._split(pd.dataset, d, record=False).shards[0]
+                 for pd, d in zip(p.in_data, layout[0])]
+                for p in plugins], shapes
+
+    def stats(self) -> dict[str, Any]:
+        return {**super().stats(),
+                "slots": [str(d) for d in self.slots],
+                "alltoalls": self.alltoalls,
+                "alltoall_bytes": self.alltoall_bytes,
+                "alltoall_s": self.alltoall_s}
 
 
 # ======================================================================

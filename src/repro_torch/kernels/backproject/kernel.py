@@ -83,9 +83,10 @@ def backproject_cuda(sino: torch.Tensor, cos_t: torch.Tensor,
         return out
     scale = float(np.float32(math.pi / n_angles))
     fn = build.function("backproject", _ARGS)
-    err = fn(build.ptr(sino), build.ptr(cos_t), build.ptr(sin_t),
-             build.ptr(out), n_sl, n_angles, n_det, out_size,
-             float(centre), scale, build.stream(sino.device))
+    with build.on(sino.device):
+        err = fn(build.ptr(sino), build.ptr(cos_t), build.ptr(sin_t),
+                 build.ptr(out), n_sl, n_angles, n_det, out_size,
+                 float(centre), scale, build.stream(sino.device))
     build.check(err, "backproject")
     tally.note("backprojection", lambda: cost(
         n_sl, n_angles, n_det, out_size,

@@ -203,6 +203,15 @@ def stream(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+def on(device: torch.device):
+    """``device`` current for a launch.  A C entry's
+    ``cudaFuncSetAttribute`` and its launch act on the current device, so
+    a tensor on another card than the current one (a sharded transport's
+    slot) must make its own card current first: launching onto another
+    device's stream fails ("invalid resource handle")."""
+    return torch.cuda.device(device)
+
+
 def ptr(t: torch.Tensor) -> int:
     """A tensor's device address, for an argument declared ``c_void_p``."""
     return t.data_ptr()

@@ -55,9 +55,11 @@ def correct_cuda(raw: torch.Tensor, dark: torch.Tensor, flat: torch.Tensor,
         [0, *itertools.accumulate(counts)], dtype=torch.int64,
         device=raw.device)
     fn = build.function(_ENTRY[raw.dtype], _ARGS)
-    err = fn(build.ptr(raw), build.ptr(dark), build.ptr(flat),
-             build.ptr(out), None if offsets is None else build.ptr(offsets),
-             j, max(counts), y * x, eps, hi, build.stream(raw.device))
+    with build.on(raw.device):
+        err = fn(build.ptr(raw), build.ptr(dark), build.ptr(flat),
+                 build.ptr(out),
+                 None if offsets is None else build.ptr(offsets), j,
+                 max(counts), y * x, eps, hi, build.stream(raw.device))
     build.check(err, "correct")
     tally.note("correction",
                lambda: cost(f, y * x, raw.element_size(), j), correct_cuda)

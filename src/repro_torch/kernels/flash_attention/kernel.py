@@ -76,9 +76,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     scale = float(np.float32(1.0 / math.sqrt(d)))
     fn = build.function("flash_attention", _ARGS)
-    err = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b, hq,
-             hkv, s, sk, d, int(causal), int(q.dtype == torch.bfloat16),
-             scale, build.stream(q.device))
+    with build.on(q.device):
+        err = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b,
+                 hq, hkv, s, sk, d, int(causal),
+                 int(q.dtype == torch.bfloat16), scale,
+                 build.stream(q.device))
     build.check(err, "flash_attention")
     tally.note("flash_attention", lambda: cost(
         b, hq, hkv, s, d, q.element_size(), causal, sk), flash_attention_cuda)

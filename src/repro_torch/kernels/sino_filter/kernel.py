@@ -54,9 +54,10 @@ def scale_spectrum_cuda(spec: torch.Tensor, filt: torch.Tensor,
         [0, *itertools.accumulate(counts)], dtype=torch.int64,
         device=spec.device)
     fn = build.function("scale_spectrum", _ARGS)
-    err = fn(build.ptr(spec), build.ptr(filt), build.ptr(out),
-             None if offsets is None else build.ptr(offsets), j,
-             max(counts), nf, build.stream(spec.device))
+    with build.on(spec.device):
+        err = fn(build.ptr(spec), build.ptr(filt), build.ptr(out),
+                 None if offsets is None else build.ptr(offsets), j,
+                 max(counts), nf, build.stream(spec.device))
     build.check(err, "scale_spectrum")
     tally.note("spectrum_scale", lambda: cost(rows, nf, j),
                scale_spectrum_cuda)

@@ -6,8 +6,8 @@ sinogram-filter chain, traced on the 256-card production mesh with
 pattern-driven placements.
 
 The dataset is a DTensor placed by its pattern (the first slice dim over
-``data``, :func:`pattern_spec`, the reference's ``Pattern.to_pspec``
-rule); each plugin runs on the local shard (the reference's
+``data``, ``Pattern.to_spec``, the reference's ``Pattern.to_pspec``
+rule, by which ``ShardedTransport`` splits it over real slots); each plugin runs on the local shard (the reference's
 ``shard_map``: frame math is shard-local, the transform axes are core
 dims), and each PROJECTION → SINOGRAM transition is a ``redistribute``,
 which the cards run as an all-to-all.  The plugins take their plain
@@ -30,7 +30,7 @@ from ..core.dataset import DataSet
 from ..core.patterns import PROJECTION, SINOGRAM, Pattern
 from ..core.plugin import PluginData
 from ..core.transport import _PeakMemory
-from ..models.sharding import Spec, distribute, spec_placements
+from ..models.sharding import distribute, spec_placements
 from ..roofline.analysis import analyse
 from ..roofline.counter import Counter
 from ..tomo.geometry import ParallelGeometry
@@ -39,18 +39,6 @@ from .mesh import fake_tensors, production_mesh
 
 N_ANGLES, N_ROWS, N_DET = 3072, 2048, 2048   # paper's ~3k angles,
 #   rounded to divide the 16-way data axis
-
-
-def pattern_spec(pattern: Pattern, data_axis: str | None = "data") -> Spec:
-    """The canonical layout's spec: first slice dim -> ``data_axis``;
-    explicit ``shard_axes`` entries override/extend; core dims
-    replicate."""
-    spec: list = [None] * pattern.ndim
-    if pattern.slice_dims and data_axis is not None:
-        spec[pattern.slice_dims[0]] = data_axis
-    for d, ax in pattern.shard_axes.items():
-        spec[d] = ax
-    return tuple(spec)
 
 
 def _dataset(name: str, shape: tuple[int, int, int]) -> DataSet:
@@ -117,15 +105,15 @@ def lower_chain(mesh, *, n_angles: int = N_ANGLES, n_rows: int = N_ROWS,
     transitions = 0
     with fake_tensors():
         x = distribute(torch.zeros(shape, dtype=torch.float32), mesh,
-                       spec_placements(mesh, pattern_spec(
-                           raw.get_pattern(PROJECTION))))
+                       spec_placements(
+                           mesh, raw.get_pattern(PROJECTION).to_spec()))
         argument_bytes = x.to_local().numel() * 4
         with Counter() as counts, CommDebugMode() as comm, \
                 _PeakMemory(torch.device(mesh.device_type)) as mem:
             cur = x
             for p in plugins:
                 want = spec_placements(mesh,
-                                       pattern_spec(p.in_data[0].pattern))
+                                       p.in_data[0].pattern.to_spec())
                 if list(cur.placements) != want:
                     transitions += 1
                     cur = cur.redistribute(mesh, want)

@@ -35,7 +35,13 @@ Three modes:
           --metric sharpness --wait --out sweep.npy
 
 Jobs run on the card unless ``--device cpu`` is given (spawned workers
-take the same ``--device`` and ``--transport``).
+take the same ``--device``, ``--transport`` and ``--slots``).
+``--transport sharded`` splits every job over the host's cards, or over
+``--slots N`` repeats of ``--device`` (``--device cpu --slots 4`` on the
+CPU)::
+
+      PYTHONPATH=src python -m repro_torch.launch.pipeline_serve \\
+          --device cpu --transport sharded --slots 4 --jobs 2 --batch
 """
 from __future__ import annotations
 
@@ -49,8 +55,8 @@ from typing import Any
 import numpy as np
 
 from ..core import (ChunkedFileTransport, CudaTransport, InMemoryTransport,
-                    PluginRunner)
-from ..core.transport import to_numpy
+                    PluginRunner, ShardedTransport)
+from ..core.transport import slots_on, to_numpy
 from ..device import resolve_device
 from ..kernels.backproject.kernel import backproject_cuda
 from ..kernels.correction.kernel import correct_cuda
@@ -72,6 +78,11 @@ transport notes:
                         those chunk files and writes only dirty-chunk
                         increments
   --transport inmemory  host storage, one group of frames at a time
+  --transport sharded   Savu's MPI mode: every dataset split over the
+                        host's cards (or --slots N repeats of --device)
+                        along its pattern's first slice dim, each kernel
+                        launched once per slot, the pattern transition
+                        an all-to-all between the slots
 
 scheduling notes:
   --batch gangs queued jobs with identical chain signatures: each
@@ -117,8 +128,12 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--workers", type=int, default=2,
                     help="scheduler worker threads (see scheduling notes)")
     ap.add_argument("--transport", default="cuda",
-                    choices=("cuda", "inmemory", "chunked"),
+                    choices=("cuda", "sharded", "inmemory", "chunked"),
                     help="execution transport (see transport notes)")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="--transport sharded: N slots on --device "
+                         "(default: every card on the card, 1 on the "
+                         "CPU)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     ap.add_argument("--batch", action=argparse.BooleanOptionalAction,
@@ -180,10 +195,10 @@ def _build_parser() -> argparse.ArgumentParser:
                          "uploading over HTTP")
     ap.add_argument("--cost-analysis",
                     action=argparse.BooleanOptionalAction, default=False,
-                    help="--transport cuda: attach per-step flops, "
-                         "bytes accessed and peak memory to the process "
-                         "spans (each distinct step runs once more, "
-                         "before its first timer)")
+                    help="--transport cuda or sharded: attach per-step "
+                         "flops, bytes accessed and peak memory to the "
+                         "process spans (each distinct step runs once "
+                         "more, before its first timer)")
     return ap
 
 
@@ -192,8 +207,13 @@ def _transport_factory(args, cache: CompileCache):
     if args.transport == "cuda":
         return lambda job: CudaTransport(dev, compile_cache=cache,
                                          cost_analysis=args.cost_analysis)
+    if args.transport == "sharded":
+        slots = slots_on(dev, args.slots)
+        return lambda job: ShardedTransport(
+            slots, compile_cache=cache, cost_analysis=args.cost_analysis)
     if args.cost_analysis:
-        raise SystemExit("--cost-analysis needs --transport cuda")
+        raise SystemExit("--cost-analysis needs --transport cuda or "
+                         "sharded")
     if args.transport == "chunked":
         return lambda job: ChunkedFileTransport(device=dev)
     return lambda job: InMemoryTransport(dev)
@@ -286,6 +306,7 @@ def _spawn(args, url: str, n: int) -> list:
     ``--batch``)."""
     return spawn_local_workers(
         url, n, transport=args.transport, device=args.device,
+        slots=args.slots,
         checkpoint_dir=args.checkpoint_dir, shared_fs=args.shared_fs,
         token=args.token,
         max_batch=args.batch_max if args.batch else 1,

@@ -40,8 +40,10 @@ unresumable checkpoint), and ``restore`` raises
 required dataset is absent or unreadable.  Manifest writes stay atomic
 (tmp + rename) so a kill mid-checkpoint leaves the previous consistent
 state; hard-linked chunk files trade that atomicity for zero-copy
-checkpoints of write-once datasets.  ``restore`` puts dense datasets
-back on the runner transport's device.
+checkpoints of write-once datasets.  ``save`` reads a sharded backing
+to the host slot block by slot block; ``restore`` puts dense datasets
+back on the runner transport's device, split over the slots on a
+``ShardedTransport``.
 
 The port's copy of ``repro.service.checkpoint``; its checkpoints use the
 same manifest and file formats.
@@ -61,7 +63,7 @@ from ..core.chunking import DEFAULT_CACHE_BYTES, naive_chunks, \
     optimise_chunks
 from ..core.dataset import DataSet
 from ..core.framework import PluginRunner
-from ..core.transport import ChunkedFile, to_tensor
+from ..core.transport import ChunkedFile, ShardedTransport, to_tensor
 from .job import chain_signature
 
 
@@ -324,7 +326,6 @@ class CheckpointStore:
                                     axis=stream["axis"])
         runner.skip_to(step)
         d = self._dir(job_id)
-        device = runner.transport.device
         for name, ent in entries.items():
             ds = runner.datasets.get(name)
             if ds is None or name not in required:
@@ -332,11 +333,16 @@ class CheckpointStore:
                 # pull a dead volume through RAM for no consumer
                 continue
             try:
-                self._load_entry(d, ent, ds, device)
+                self._load_entry(d, ent, ds, runner.transport.device)
             except (FileNotFoundError, ValueError, OSError) as e:
                 raise CheckpointError(
                     f"checkpoint for job {job_id!r}: required dataset "
                     f"{name!r} is unreadable ({e})") from e
+            if isinstance(runner.transport, ShardedTransport) \
+                    and ds.stream_axis is None:
+                # back split over the slots (a growing dataset stays on
+                # the first slot, where the windows write it)
+                runner.transport.device_put(ds)
         if stream is not None:
             runner.restore_stream_state(stream)
         return step

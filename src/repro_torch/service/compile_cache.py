@@ -9,7 +9,8 @@ process list finds every plugin step already built.
 
 Keys come from ``CudaTransport._plugin_key``: (plugin static identity,
 in/out dataset shapes/dtypes/patterns, constants structure, driver,
-device).  Values are built steps whose setup-derived constants
+device — a ``ShardedTransport``'s slot devices, so built steps and
+their costs are keyed per slot set).  Values are built steps whose setup-derived constants
 (dark/flat fields, filter banks...) are arguments, so a hit is valid
 across jobs even when calibration data differs.
 

@@ -418,6 +418,8 @@ class PipelineScheduler:
         ds = runner.datasets[name]
         if isinstance(ds.backing, torch.Tensor):
             return ds.backing
+        # other backings (a sharded one slot block by slot block) are
+        # read to the host
         return np.ascontiguousarray(np.asarray(runner.transport.read(ds)))
 
     def _resolve_upstream(self, job: Job) -> None:
@@ -671,7 +673,8 @@ class PipelineScheduler:
                     # wall, tagged with the gang size, the gang step's
                     # cost and the kernel launches it made
                     r.profiler.record(g[0].name, "process", t0, t1,
-                                      gang=len(jobs), **(cost or {}),
+                                      r.devices, gang=len(jobs),
+                                      **(cost or {}),
                                       **launched.launch_attrs())
                     r.complete_step()
                     job.plugin_index = r.current_step

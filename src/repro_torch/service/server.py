@@ -90,7 +90,8 @@ import numpy as np
 import torch
 
 from ..core.process_list import ProcessListError
-from ..core.transport import ChunkedFile, CudaTransport, Transport
+from ..core.transport import (ChunkedFile, CudaTransport, ShardedTensor,
+                              Transport)
 from ..device import resolve_device
 from ..obs.export import trace_to_otlp
 from ..obs.log import EventLog
@@ -436,14 +437,14 @@ class PipelineService:
     def _variant_array(self, job_id: str, dataset: str | None = None
                        ) -> torch.Tensor | np.ndarray:
         """One DONE variant's result where its job left it (a tensor on
-        the transport's device; other backings read to the host; a
-        worker's ``.npy``, memory-mapped) — the SweepManager's ``fetch``
-        hook."""
+        the transport's device, or on a sharded transport's slots;
+        other backings read to the host; a worker's ``.npy``,
+        memory-mapped) — the SweepManager's ``fetch`` hook."""
         remote = self.result_file(job_id, dataset)
         if remote is not None:
             return np.load(remote[1], mmap_mode="r")
         ds, transport = self.result_dataset(job_id, dataset)
-        if isinstance(ds.backing, torch.Tensor):
+        if isinstance(ds.backing, (torch.Tensor, ShardedTensor)):
             return ds.backing
         return np.ascontiguousarray(np.asarray(transport.read(ds)))
 
@@ -615,17 +616,24 @@ def _npy_header(shape: tuple[int, ...], dtype) -> bytes:
     return buf.getvalue()     # write_array_header_1_0 includes the magic
 
 
-def _npy_dtype(a: torch.Tensor | np.ndarray | ChunkedFile) -> np.dtype:
-    if isinstance(a, torch.Tensor):
+def _npy_dtype(a: torch.Tensor | ShardedTensor | np.ndarray | ChunkedFile
+               ) -> np.dtype:
+    if isinstance(a.dtype, torch.dtype):
         return torch.empty(0, dtype=a.dtype).numpy().dtype
     return np.dtype(a.dtype)
 
 
-def _blocks(a: torch.Tensor | np.ndarray | ChunkedFile) -> Iterator[bytes]:
+def _blocks(a: torch.Tensor | ShardedTensor | np.ndarray | ChunkedFile
+            ) -> Iterator[bytes]:
     """C-ordered bytes of ``a`` in blocks of leading-axis rows: a tensor
     one device-to-host copy per block of about
-    :data:`RESULT_BLOCK_BYTES`, a chunk-addressed file one chunk-row slab
-    at a time."""
+    :data:`RESULT_BLOCK_BYTES`, a sharded tensor its slot blocks in slot
+    order (each so), a chunk-addressed file one chunk-row slab at a
+    time."""
+    if isinstance(a, ShardedTensor):
+        for t in a.leading_blocks():
+            yield from _blocks(t)
+        return
     if isinstance(a, ChunkedFile):
         a.flush()
         step = a.chunks[0]
@@ -1197,7 +1205,8 @@ class _PipelineHandler(BaseHTTPRequestHandler):
                     "X-Dataset": remote[0]})
             ds, _ = self.service.result_dataset(job_id, dataset)
             backing = ds.backing
-            if not isinstance(backing, (torch.Tensor, ChunkedFile)):
+            if not isinstance(backing,
+                              (torch.Tensor, ShardedTensor, ChunkedFile)):
                 backing = np.asarray(ds.materialise())
         except KeyError as e:
             return self._error(404, str(e))

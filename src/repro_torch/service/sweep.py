@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..core.plugin import _is_jsonable
+from ..core.transport import ShardedTensor
 from ..core.process_list import PluginEntry, ProcessList
 from .job import Job
 from .queue import JobQueue
@@ -81,7 +82,10 @@ class Metric:
 
 def _float64(a: torch.Tensor | np.ndarray) -> torch.Tensor:
     """``a`` as float64 on the device it lies on (a host array on the
-    CPU): a result volume is scored where it is, never copied out."""
+    CPU; a sharded one gathered on its first slot): a result volume is
+    scored on the device, never copied out."""
+    if isinstance(a, ShardedTensor):
+        a = a.to(a.devices[0])
     if not isinstance(a, torch.Tensor):
         a = torch.from_numpy(np.array(a))
     return a.to(torch.float64)
@@ -570,7 +574,7 @@ class SweepManager:
             raise RuntimeError("no result fetcher configured")
         first = self.fetch(g.jobs[0].job_id, dataset)
         dtype = (torch.empty(0, dtype=first.dtype).numpy().dtype
-                 if isinstance(first, torch.Tensor) else first.dtype)
+                 if isinstance(first.dtype, torch.dtype) else first.dtype)
         return (g, g.shape + tuple(first.shape), dtype, first)
 
     def stats(self) -> dict[str, Any]:

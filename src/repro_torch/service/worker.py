@@ -31,6 +31,12 @@ built step (``GangSignatureMismatch``) runs member by member, counted as
 ``gang.fallback``; any other error fails the gang.  Transports without
 batch support (inmemory/chunked) run the members one after another.
 
+``--transport sharded`` runs every job over the host's cards (or
+``--slots N`` repeats of ``--device``), each kernel launched once per
+slot, and the worker registers ``mesh_shape [N]``; the broker leases a
+job whose ``metadata["mesh_shape"]`` asks for N devices only to a worker
+with at least N.  Every other worker registers ``[1]``.
+
 Fault model: if this process dies (SIGKILL, OOM, node loss) it simply
 stops heartbeating; the broker expires the lease and requeues the job,
 and the next worker to lease it restores the last checkpoint from the
@@ -71,7 +77,8 @@ from ..core.framework import PluginRunner
 from ..core.profiler import Profiler
 from ..core.transport import (ChunkedFileTransport, CudaTransport,
                               GangSignatureMismatch, InMemoryTransport,
-                              Transport, to_numpy)
+                              ShardedTransport, Transport, slots_on,
+                              to_numpy)
 from ..device import resolve_device
 from ..kernels import build as kernel_build
 from ..kernels.tally import tally
@@ -83,7 +90,7 @@ from .job import chain_signature
 from .wire import from_spec, registered_plugins
 
 #: the transports a worker may run its jobs on
-TRANSPORTS = ("cuda", "chunked", "inmemory")
+TRANSPORTS = ("cuda", "sharded", "chunked", "inmemory")
 
 
 class _Abandon(Exception):
@@ -175,7 +182,9 @@ class PipelineWorker:
         plugins: advertised wire plugin names (default: everything in
             this process's registry).
         mesh_shape: advertised device shape (capacity filter; default
-            the card count on the card, ``[1]`` on the CPU).
+            ``[1]``: a ``cuda`` transport computes on one card; a
+            ``sharded`` worker advertises its slot count, ``main``
+            passes it).
         max_batch: largest lease the worker accepts; leased jobs with
             identical chain signatures are gang-executed
             (``run_plugin_batch``) when the transport supports it.
@@ -234,10 +243,7 @@ class PipelineWorker:
         self.shared_fs = shared_fs
         self.plugins = (plugins if plugins is not None
                         else sorted(registered_plugins()))
-        if mesh_shape is None:
-            mesh_shape = [torch.cuda.device_count()
-                          if self.device.type == "cuda" else 1]
-        self.mesh_shape = mesh_shape
+        self.mesh_shape = mesh_shape if mesh_shape is not None else [1]
         self.max_batch = max_batch
         self.sweeps = sweeps
         self.poll = poll
@@ -649,7 +655,7 @@ class PipelineWorker:
                         transport.run_plugin(g[0])
         t1 = time.time()
         for (_, r), g in zip(live, groups):
-            r.profiler.record(g[0].name, "process", t0, t1,
+            r.profiler.record(g[0].name, "process", t0, t1, r.devices,
                               gang=len(live), **(cost or {}),
                               **launched.launch_attrs())
             r.complete_step()
@@ -824,7 +830,7 @@ class PipelineWorker:
 
 # ----------------------------------------------------------------------
 def spawn_local_workers(url: str, n: int, *, transport: str = "cuda",
-                        device: str = "cuda",
+                        device: str = "cuda", slots: int | None = None,
                         checkpoint_dir: str | None = None,
                         shared_fs: bool = False, poll: float = 0.1,
                         heartbeat: float | None = None,
@@ -861,6 +867,8 @@ def spawn_local_workers(url: str, n: int, *, transport: str = "cuda",
                "--poll", str(poll),
                "--worker-id",
                (worker_ids[i] if worker_ids else f"local-{i}")]
+        if slots is not None:
+            cmd += ["--slots", str(slots)]
         if checkpoint_dir:
             cmd += ["--checkpoint-dir", checkpoint_dir]
         if shared_fs:
@@ -885,18 +893,26 @@ def spawn_local_workers(url: str, n: int, *, transport: str = "cuda",
 def _transport_factory(kind: str, scratch: str,
                        device: str | torch.device = "cuda",
                        compile_cache: CompileCache | None = None,
-                       cost_analysis: bool = False
+                       cost_analysis: bool = False,
+                       slots: tuple[torch.device, ...] | None = None
                        ) -> Callable[[dict], Transport]:
-    """Job descriptor -> a fresh transport of ``kind`` on ``device``;
-    ``cuda`` transports share ``compile_cache`` (process-level)."""
+    """Job descriptor -> a fresh transport of ``kind`` on ``device``
+    (``sharded``: on ``slots``, default :func:`slots_on` ``device``);
+    ``cuda`` and ``sharded`` transports share ``compile_cache``
+    (process-level)."""
     dev = resolve_device(device)
-    if kind == "cuda":
+    if kind in ("cuda", "sharded"):
         cache = (compile_cache if compile_cache is not None
                  else CompileCache())
+        if kind == "sharded":
+            slots = slots or slots_on(dev)
+            return lambda desc: ShardedTransport(
+                slots, compile_cache=cache, cost_analysis=cost_analysis)
         return lambda desc: CudaTransport(dev, compile_cache=cache,
                                           cost_analysis=cost_analysis)
     if cost_analysis:
-        raise ValueError("cost analysis needs the cuda transport")
+        raise ValueError("cost analysis needs the cuda or sharded "
+                         "transport")
     if kind == "chunked":
         return lambda desc: ChunkedFileTransport(
             os.path.join(scratch, desc["job_id"]), device=dev)
@@ -915,6 +931,10 @@ def main(argv: list[str] | None = None) -> None:
                     help="'cuda' (default; raises without a card) or "
                          "'cpu'")
     ap.add_argument("--transport", default="cuda", choices=TRANSPORTS)
+    ap.add_argument("--slots", type=int, default=None,
+                    help="--transport sharded: N slots on --device "
+                         "(default: every card on the card, 1 on the "
+                         "CPU); the worker advertises mesh_shape [N]")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="shared checkpoint directory (cross-worker "
                          "resume needs every worker pointed here)")
@@ -952,8 +972,9 @@ def main(argv: list[str] | None = None) -> None:
                          "workers of one host share)")
     ap.add_argument("--cost-analysis",
                     action=argparse.BooleanOptionalAction, default=False,
-                    help="--transport cuda: attach per-step flops, bytes "
-                         "accessed and peak memory to the process spans")
+                    help="--transport cuda or sharded: attach per-step "
+                         "flops, bytes accessed and peak memory to the "
+                         "process spans")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     for mod in args.imports:
@@ -966,12 +987,15 @@ def main(argv: list[str] | None = None) -> None:
         # the library is resolved once, at the first launch, through
         # the disk tier, the broker's warm pool, then nvcc
         kernel_build.use_resolver(compile_cache.kernel_library)
+    slots = (slots_on(dev, args.slots) if args.transport == "sharded"
+             else None)
     worker = PipelineWorker(
         args.url, device=dev,
         transport_factory=_transport_factory(
             args.transport, scratch, dev, compile_cache=compile_cache,
-            cost_analysis=args.cost_analysis),
+            cost_analysis=args.cost_analysis, slots=slots),
         transport=args.transport,
+        mesh_shape=[len(slots)] if slots else None,
         checkpoint_dir=args.checkpoint_dir, shared_fs=args.shared_fs,
         worker_id=args.worker_id, max_batch=args.max_batch,
         sweeps=args.sweeps, poll=args.poll, heartbeat=args.heartbeat,
@@ -980,6 +1004,7 @@ def main(argv: list[str] | None = None) -> None:
     wid = worker.register()
     print(f"worker {wid} serving {args.url} "
           f"(device={dev}, transport={args.transport}, "
+          f"mesh_shape={worker.mesh_shape}, "
           f"plugins={len(worker.plugins)}"
           f"{', checkpointed' if worker.checkpoints else ''}"
           f"{', shared-fs' if args.shared_fs else ''}"

@@ -473,6 +473,60 @@ def test_gang_on_card_launches_each_kernel_once(cuda):
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
 
 
+@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
+def test_four_slots_on_one_card_equal_the_one_card_chain(cuda, fuse):
+    """ShardedTransport over ("cuda:0",) * 4: the reconstruction equals
+    the one-card run, and every kernel launches once per slot."""
+    from repro_torch.core import ShardedTransport
+    scan = simulate_raw_scan(phantom_stack(64, 4),
+                             ParallelGeometry(96, 64, 4), device=cuda)
+    one = PluginRunner(_scan_chain(scan, 64, 96, 4), CudaTransport(cuda))
+    want = one.transport.read(one.run()["recon"])
+    before = (correct_cuda.launches, scale_spectrum_cuda.launches,
+              backproject_cuda.launches)
+    tr = ShardedTransport(("cuda:0",) * 4)
+    r = PluginRunner(_scan_chain(scan, 64, 96, 4), tr, fuse=fuse)
+    got = tr.read(r.run()["recon"])
+    assert (correct_cuda.launches, scale_spectrum_cuda.launches,
+            backproject_cuda.launches) == tuple(b + 4 for b in before)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+    assert len(r.datasets["recon"].backing.shards) == 4
+    assert tr.stats()["alltoall_bytes"] == 96 * 4 * 64 * 4 * 3 // 4
+
+
+def test_each_kernel_launches_on_the_second_card(cuda, rng):
+    """The device guard: with cuda:0 current, each kernel launched on a
+    tensor on cuda:1 runs there and equals its plain version there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: this host has one, so a "
+                    "launch on a card other than the current one cannot "
+                    "be tried here")
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    raw = _t(rng.integers(50, 40000, size=(9, 16, 64)).astype(np.uint16))
+    dark = _t(rng.integers(80, 120, size=(16, 64)).astype(np.float32))
+    flat = _t(rng.integers(30000, 42000, size=(16, 64)).astype(np.float32))
+    got = correct_cuda(raw.to(dev), dark.to(dev), flat.to(dev))
+    assert got.device == dev
+    np.testing.assert_allclose(got.cpu().numpy(), correct_ref(
+        raw, dark[None], flat[None]).numpy(), rtol=1e-6, atol=1e-6)
+    spec = torch.randn((33, 129), dtype=torch.complex64, device=dev)
+    filt = torch.rand(129, device=dev)
+    torch.testing.assert_close(scale_spectrum_cuda(spec, filt),
+                               scale_spectrum_ref(spec, filt), rtol=1e-5,
+                               atol=1e-5)
+    sino = torch.randn((3, 48, 64), device=dev)
+    angles = torch.from_numpy(ParallelGeometry(48, 64, 1).angles.astype(
+        np.float32))
+    torch.testing.assert_close(
+        backproject(sino, angles, 64).cpu(),
+        backproject_ref(sino.cpu(), angles, 64), rtol=2e-4, atol=2e-5)
+    q, k, v = (torch.randn((1, 4, 128, 64), device=dev) for _ in range(3))
+    torch.testing.assert_close(flash_attention_cuda(q, k, v),
+                               mha_ref(q, k, v), rtol=2e-5, atol=2e-5)
+    assert torch.cuda.current_device() == 0
+
+
 # (B, Hq, Hkv, S, D): the reference's sweep, then group sizes 4 and 48
 # (granite-34b's MQA) at D 128 and ragged lengths no tile divides
 FLASH_CASES = [(2, 4, 2, 64, 16), (1, 8, 1, 128, 32), (2, 4, 4, 32, 64),

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import ChunkedFileTransport, InMemoryTransport, \
-    PluginRunner
+    PluginRunner, ShardedTransport
 from repro_torch.configs import get_config
 from repro_torch.kernels.backproject.ops import backproject
 from repro_torch.kernels.flash_attention.ops import attention
@@ -166,6 +166,8 @@ def test_runner_without_transport_needs_the_card(no_cuda):
     lambda: init_training(build_model(get_config("granite-8b", smoke=True),
                                       training=True), None),
     lambda: train.main(["--steps", "1"]),
+    lambda: ShardedTransport(),
+    lambda: pipeline_serve.main(["--jobs", "1", "--transport", "sharded"]),
 ], ids=["resolve_device", "inmemory", "chunked", "forward_project",
         "build_model", "serve", "scheduler", "pipeline_serve",
         "pipeline_service", "client_ingest_synthetic", "worker_main",
@@ -173,7 +175,8 @@ def test_runner_without_transport_needs_the_card(no_cuda):
         "pipeline_serve_workers_remote",
         *[f"build_model_{a}" for a in FAMILIES],
         *[f"serve_{a}" for a in FAMILIES],
-        "build_model_training", "init_training", "launch_train"])
+        "build_model_training", "init_training", "launch_train",
+        "sharded_transport", "pipeline_serve_sharded"])
 def test_entry_points_default_to_the_card(no_cuda, make):
     with pytest.raises(RuntimeError, match="cpu"):
         make()

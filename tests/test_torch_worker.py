@@ -21,6 +21,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import repro.core as R
 import repro.service as JS
@@ -380,6 +381,52 @@ def test_capability_filter_routes_jobs(broker):
     big = client.workers()["big"]
     assert (big["device"], big["transport"], big["mesh_shape"]) == \
         ("NVIDIA H100 80GB HBM3", "cuda", [4])
+
+
+def test_cuda_worker_advertises_one_card(monkeypatch):
+    """A ``cuda`` worker computes on one card, so it registers
+    ``mesh_shape [1]`` on a host with more (it advertised the host's
+    card count, and could be leased a job asking for 4 cards)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    w = PipelineWorker("http://127.0.0.1:9", device="cuda")
+    assert w.mesh_shape == [1]
+
+
+def test_sharded_worker_takes_the_jobs_asking_for_its_slots():
+    """``service.worker --transport sharded --slots 2`` (a process on 2
+    CPU slots) registers ``mesh_shape [2]``; a job whose metadata asks
+    for ``mesh_shape [2]`` is leased to it and never to a one-device
+    worker, and its volume equals the single-process run bit for bit."""
+    svc = PipelineService(device="cpu", workers_remote=True, lease_ttl=5.0)
+    host, port = svc.serve(port=0)
+    url = f"http://{host}:{port}"
+    client = PipelineClient(url, timeout=60.0)
+    one = PipelineWorker(url, device="cpu", worker_id="one", poll=0.01)
+    one.register()
+    workers = spawn_local_workers(url, 1, transport="sharded",
+                                  device="cpu", slots=2, poll=0.05,
+                                  worker_ids=["two"],
+                                  pythonpath_extra=(TESTS_DIR,))
+    try:
+        deadline = time.time() + 60
+        while "two" not in client.workers() and time.time() < deadline:
+            time.sleep(0.1)
+        regs = client.workers()
+        assert (regs["one"]["mesh_shape"], regs["one"]["transport"]) == \
+            ([1], "cuda")
+        assert (regs["two"]["mesh_shape"], regs["two"]["transport"]) == \
+            ([2], "sharded")
+        spec = _spec(seed=5, n_det=16, n_angles=8)
+        spec["plugins"][0]["params"]["n_rows"] = 2
+        jid = client.submit(spec, metadata={"mesh_shape": [2]})
+        assert one.run_once() is False
+        snap = client.wait(jid, timeout=120)
+        assert snap["state"] == "done" and snap["worker_id"] == "two", snap
+        np.testing.assert_array_equal(client.result(jid), _reference(spec))
+    finally:
+        _reap(workers)
+        svc.stop()
 
 
 def test_capability_starvation_regression(broker):
