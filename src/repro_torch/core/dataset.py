@@ -34,6 +34,9 @@ class DataSet:
     available_extent: int | None = None
     #: axis label the dataset grows along while streaming (None: static)
     stream_axis: str | None = None
+    #: the trace of the request that owns the dataset (set by the runner
+    #: that registers it): where the transport records its copies
+    trace: Any = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         self.shape = tuple(int(s) for s in self.shape)

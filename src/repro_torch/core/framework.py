@@ -34,6 +34,7 @@ chain runs on the card, and a host without one raises.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import time
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 
 from ..kernels.tally import tally
+from ..obs.trace import current_trace, use_trace
 from .dataset import DataSet
 from .plugin import BaseLoader, BasePlugin, BaseSaver, PluginData
 from .process_list import ProcessList
@@ -92,6 +94,19 @@ class _StreamState:
         return self.ingested >= self.total
 
 
+def _on_own_trace(method):
+    """Run ``method`` with the runner's trace as the current one (where
+    the compile cache and the kernel library record), unless a caller
+    (a scheduler, a worker) bound one."""
+    @functools.wraps(method)
+    def bound(self, *args, **kwargs):
+        if current_trace() is not None:
+            return method(self, *args, **kwargs)
+        with use_trace(self.profiler.trace):
+            return method(self, *args, **kwargs)
+    return bound
+
+
 class PluginRunner:
     def __init__(self, process_list: ProcessList,
                  transport: Transport | None = None,
@@ -134,17 +149,23 @@ class PluginRunner:
         return self.datasets
 
     # -- resumable stepping interface -----------------------------------
+    @_on_own_trace
     def prepare(self) -> "PluginRunner":
-        """Check the process list and run the setup phase; after this the
-        runner is a sequence of ``n_steps`` resumable plugin steps."""
+        """Check the process list and run the setup phase, inside one
+        ``runner.prepare`` span; after this the runner is a sequence of
+        ``n_steps`` resumable plugin steps."""
         if self._prepared:
             return self
-        self.process_list.check()
-        self._loaders, self._processors, self._savers = self._split()
-        self._setup_phase(self._loaders, self._processors, self._savers)
-        self._groups = (self._fusion_groups(self._processors) if self.fuse
-                        else [[p] for p in self._processors])
-        self._compute_liveness()
+        with self.profiler.trace.span("runner.prepare",
+                                      worker_id=self.profiler.worker_id):
+            self.process_list.check()
+            self._loaders, self._processors, self._savers = self._split()
+            self._setup_phase(self._loaders, self._processors,
+                              self._savers)
+            self._groups = (self._fusion_groups(self._processors)
+                            if self.fuse
+                            else [[p] for p in self._processors])
+            self._compute_liveness()
         self._step_i = 0
         self._prepared = True
         return self
@@ -252,6 +273,7 @@ class PluginRunner:
         self._in_step = False
         self._step_i += 1
 
+    @_on_own_trace
     def step(self) -> bool:
         """Run one plugin (or fused group).  Returns False when the chain
         is exhausted."""
@@ -301,6 +323,7 @@ class PluginRunner:
             else:
                 ds.backing = arr
 
+    @_on_own_trace
     def finalise(self) -> None:
         if self._step_i < len(self._groups):
             raise RuntimeError(
@@ -494,6 +517,7 @@ class PluginRunner:
                              f"the stream must cover the dataset extent")
         st.eof = True
 
+    @_on_own_trace
     def pump(self) -> int:
         """Execute everything the arrived prefix allows: advance every
         runnable windowed plugin over its new slab (one call on the
@@ -752,6 +776,7 @@ class PluginRunner:
         for ld in loaders:
             with self.profiler.timer(ld.name, "setup"):
                 for ds in ld.load():
+                    ds.trace = self.profiler.trace
                     self.datasets[ds.name] = ds
                     self.lineage.append(ds)
         # Processing plugins: attach PluginData, call setup, register outs.
@@ -769,6 +794,7 @@ class PluginRunner:
             for ds, name in zip(outs, p.out_dataset_names):
                 ds.name = name
                 ds.produced_by = f"p{i + 1}.{p.name}"
+                ds.trace = self.profiler.trace
                 p.out_data.append(PluginData(ds))
             # propagate pattern/frames choice made in setup to out views
             for pd in p.out_data:

@@ -91,6 +91,51 @@ def _on(device: torch.device):
             else contextlib.nullcontext())
 
 
+def _from_host(a, device: torch.device) -> bool:
+    """Whether handing ``a`` to ``device`` copies it out of host memory:
+    a numpy array, or a CPU tensor bound for a card."""
+    return isinstance(a, np.ndarray) or (
+        isinstance(a, torch.Tensor) and a.device.type == "cpu"
+        and device.type != "cpu")
+
+
+def _nbytes(a) -> int:
+    return (a.numel() * a.element_size() if isinstance(a, torch.Tensor)
+            else a.nbytes)
+
+
+def _devices_of(devices: Sequence[torch.device]) -> str:
+    return ",".join(dict.fromkeys(str(d) for d in devices))
+
+
+def _to_device_span(ds: DataSet | None, a, to: torch.device, **attrs):
+    """A ``transport.to_device`` span around the block when handing
+    ``a`` (``ds``'s data) to device ``to`` copies it out of host memory
+    (no span otherwise).  ``attrs`` add to, or replace, its ``bytes``,
+    ``dataset``, ``device`` and ``pinned`` (of the source).  What the
+    host sees of the copy: a pageable copy may return before its last
+    DMA ends."""
+    if ds is None or not _from_host(a, to):
+        return contextlib.nullcontext()
+    return _copy_span("transport.to_device", ds, **{
+        "bytes": _nbytes(a), "dataset": ds.name, "device": str(to),
+        # a numpy array is never page-locked
+        "pinned": isinstance(a, torch.Tensor) and a.is_pinned(), **attrs})
+
+
+@contextlib.contextmanager
+def _copy_span(name: str, ds: DataSet, **attrs):
+    """Record ``name`` (``transport.to_device``/``transport.to_host``)
+    around the block, on the epoch clock, on the trace of the request
+    that owns ``ds``, else on the current trace, else nowhere.  Yields
+    the span's attributes, which the block may complete."""
+    tr = ds.trace if ds.trace is not None else current_trace()
+    t0 = time.time()
+    yield attrs
+    if tr is not None:
+        tr.record(name, t0, time.time(), attrs=attrs)
+
+
 class ShardedTensor:
     """A dataset's backing on a :class:`ShardedTransport` between steps:
     one tensor per slot, each the slot's block along ``dim`` (slot order
@@ -531,10 +576,34 @@ class CudaTransport(Transport):
         """The devices a step runs on, for its key."""
         return (str(self.device),)
 
+    def _to_device(self, ds: DataSet, a) -> torch.Tensor:
+        """``a`` (``ds``'s data, or a slab of it) as a tensor on the
+        transport's device (:func:`_to_device_span`)."""
+        with _to_device_span(ds, a, self.device):
+            return to_tensor(a, self.device)
+
+    def read(self, ds: DataSet) -> np.ndarray:
+        """``ds`` in host memory; a copy off the device (or off every
+        slot, as one gather) is a ``transport.to_host`` span."""
+        b = ds.materialise()
+        if isinstance(b, torch.Tensor):
+            where = {"device": str(b.device)}
+        elif isinstance(b, ShardedTensor):
+            where = {"device": _devices_of(b.devices),
+                     "slots": len(b.devices)}
+        else:
+            return to_numpy(b)
+        # the destination is a fresh pageable array
+        with _copy_span("transport.to_host", ds, dataset=ds.name,
+                        pinned=False, **where) as attrs:
+            out = to_numpy(b)
+            attrs["bytes"] = out.nbytes
+        return out
+
     def _device_in(self, plugin: BasePlugin) -> list[torch.Tensor]:
         arrays = []
         for pd in plugin.in_data:
-            t = to_tensor(pd.dataset.materialise(), self.device)
+            t = self._to_device(pd.dataset, pd.dataset.materialise())
             if not pd.last_use:
                 pd.dataset.backing = t     # later consumers reuse the copy
             arrays.append(t)
@@ -575,7 +644,8 @@ class CudaTransport(Transport):
         step = self.compile_cache.get_or_build(
             self._plugin_key(plugin, consts),
             lambda: self._plugin_fn(plugin))
-        outs = list(step(consts, *[to_tensor(s, self.device) for s in slabs],
+        outs = list(step(consts, *[self._to_device(pd.dataset, s)
+                                   for pd, s in zip(plugin.in_data, slabs)],
                          shapes=out_shapes))
         self._sync()
         return outs
@@ -861,15 +931,21 @@ class ShardedTransport(CudaTransport):
                 f"{n})")
         return shape[:dim] + (shape[dim] // n,) + shape[dim + 1:]
 
-    def _scatter(self, a, dim: int | None, name: str) -> ShardedTensor:
-        """A host array or one-device tensor as slot blocks."""
+    def _scatter(self, a, dim: int | None, name: str,
+                 ds: DataSet | None = None) -> ShardedTensor:
+        """A host array or one-device tensor as slot blocks; the scatter
+        of ``ds``'s host data is one ``transport.to_device`` span."""
         local = self._local(name, a.shape, dim)
-        shards = []
-        for j, dev in enumerate(self.slots):
-            block = a if dim is None else _narrow(a, dim, j * local[dim],
-                                                  local[dim])
-            shards.append(to_tensor(block, dev).contiguous())
-        return ShardedTensor(shards, dim, self.slots)
+        blocks = [a if dim is None else _narrow(a, dim, j * local[dim],
+                                                local[dim])
+                  for j in range(len(self.slots))]
+        with _to_device_span(ds, a, self.device,
+                             bytes=sum(_nbytes(b) for b in blocks),
+                             device=_devices_of(self.slots),
+                             slots=len(self.slots)):
+            return ShardedTensor([to_tensor(b, dev).contiguous()
+                                  for b, dev in zip(blocks, self.slots)],
+                                 dim, self.slots)
 
     def _replicate(self, t: torch.Tensor) -> ShardedTensor:
         return ShardedTensor([t.to(dev) for dev in self.slots], None,
@@ -916,7 +992,7 @@ class ShardedTransport(CudaTransport):
         b = ds.materialise()
         if isinstance(b, ShardedTensor):
             return self._resplit(b, dim, ds.name, record)
-        return self._scatter(b, dim, ds.name)
+        return self._scatter(b, dim, ds.name, ds)
 
     def device_put(self, ds: DataSet, pattern_name: str | None = None,
                    data_axis: str = "data") -> ShardedTensor:

@@ -9,7 +9,8 @@ after a lease expiry) on different workers, results handed back.  This
 module is the substrate:
 
 * a :class:`Span` is one timed operation (``queue.wait``, ``lease``,
-  ``compile``, ``plugin.<name>.<phase>``, ``checkpoint.save``,
+  ``runner.prepare``, ``compile``, ``plugin.<name>.<phase>``,
+  ``transport.to_device``/``to_host``, ``checkpoint.save``,
   ``result.upload``...) with a ``trace_id`` (the job), a ``span_id``
   (itself), an optional ``parent_id`` and the ``worker_id`` of the
   process that recorded it.  Timestamps are **epoch seconds**
@@ -251,6 +252,32 @@ _current: contextvars.ContextVar[Trace | None] = \
     contextvars.ContextVar("repro_torch_obs_current_trace", default=None)
 
 
+class _Tagged:
+    """A trace bound by :func:`use_trace` with attributes: the spans
+    recorded through it carry them (a gang step's ``gang`` size on what
+    the step builds for the whole gang)."""
+
+    def __init__(self, trace: Trace, attrs: dict[str, Any]):
+        self.trace = trace
+        self.tags = attrs
+
+    def record(self, name: str, start: float, end: float, *,
+               attrs: dict[str, Any] | None = None, **kw: Any) -> Span:
+        return self.trace.record(name, start, end,
+                                 attrs={**self.tags, **(attrs or {})}, **kw)
+
+    def begin(self, name: str, *, attrs: dict[str, Any] | None = None,
+              **kw: Any) -> Span:
+        return self.trace.begin(name, attrs={**self.tags, **(attrs or {})},
+                                **kw)
+
+    def span(self, name: str, **kw: Any):
+        return self.trace.span(name, **{**self.tags, **kw})
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self.trace, name)
+
+
 def current_trace() -> Trace | None:
     """The trace of the job executing on this thread/context, if any —
     how layers with no job handle (the compile cache) attach spans."""
@@ -258,9 +285,12 @@ def current_trace() -> Trace | None:
 
 
 @contextlib.contextmanager
-def use_trace(trace: Trace | None):
-    """Bind ``trace`` as the current trace for the duration."""
-    token = _current.set(trace)
+def use_trace(trace: Trace | None, **attrs: Any):
+    """Bind ``trace`` as the current trace for the duration; with
+    ``attrs``, every span recorded through :func:`current_trace` carries
+    them."""
+    token = _current.set(_Tagged(trace, attrs) if attrs and trace is not None
+                         else trace)
     try:
         yield trace
     finally:

@@ -644,29 +644,34 @@ class PipelineScheduler:
             for _ in range(runners[0].n_steps):
                 groups = [r.begin_step() for r in runners]
                 batched = can_batch and len(groups[0]) == 1
-                # the gang step's cost, like a solo step's, is measured
-                # before its timer starts
-                cost = (transport.plugin_cost(*[g[0] for g in groups])
-                        if batched and hasattr(transport, "plugin_cost")
-                        else None)
-                t0 = time.time()
-                with tally() as launched:
-                    if batched:
-                        try:
-                            transport.run_plugin_batch(
-                                [g[0] for g in groups])
-                        except GangSignatureMismatch as e:
-                            self._gang_fallback(jobs, groups[0][0].name, e)
-                            cost = None
+                # the first member's trace records what the step builds
+                # or loads for the whole gang; each member's copies land
+                # on its own datasets' trace
+                with use_trace(jobs[0].trace, gang=len(jobs)):
+                    # the gang step's cost, like a solo step's, is
+                    # measured before its timer starts
+                    cost = (transport.plugin_cost(*[g[0] for g in groups])
+                            if batched and hasattr(transport, "plugin_cost")
+                            else None)
+                    t0 = time.time()
+                    with tally() as launched:
+                        if batched:
+                            try:
+                                transport.run_plugin_batch(
+                                    [g[0] for g in groups])
+                            except GangSignatureMismatch as e:
+                                self._gang_fallback(jobs, groups[0][0].name,
+                                                    e)
+                                cost = None
+                                for g in groups:
+                                    transport.run_plugin(g[0])
+                        else:
                             for g in groups:
-                                transport.run_plugin(g[0])
-                    else:
-                        for g in groups:
-                            if len(g) > 1:
-                                transport.run_fused(g)
-                            else:
-                                transport.run_plugin(g[0])
-                t1 = time.time()
+                                if len(g) > 1:
+                                    transport.run_fused(g)
+                                else:
+                                    transport.run_plugin(g[0])
+                    t1 = time.time()
                 for job, r, g in zip(jobs, runners, groups):
                     # the batched call is one step over the
                     # whole gang — each member's trace gets the shared

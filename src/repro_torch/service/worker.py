@@ -637,7 +637,8 @@ class PipelineWorker:
         t0 = time.time()
         # the first member's trace records what the step builds or
         # loads (the kernel library at a worker's first launch)
-        with use_trace(traces[live[0][0]["job_id"]]), tally() as launched:
+        with use_trace(traces[live[0][0]["job_id"]], gang=len(live)), \
+                tally() as launched:
             if batched:
                 try:
                     transport.run_plugin_batch([g[0] for g in groups])
