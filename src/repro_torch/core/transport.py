@@ -136,6 +136,54 @@ def _copy_span(name: str, ds: DataSet, **attrs):
         tr.record(name, t0, time.time(), attrs=attrs)
 
 
+def pinned_block_bytes(nbytes: int) -> int:
+    """The bytes torch's caching host allocator takes for a request of
+    ``nbytes``: the next power of two (none for an empty one)."""
+    return 0 if nbytes <= 0 else 1 << (nbytes - 1).bit_length()
+
+
+def pin_fits(owned: int, nbytes: int, phys: int) -> bool:
+    """Whether a read of ``nbytes`` may take a page-locked block: the
+    bytes the caching host allocator owns (``owned``, blocks in use and
+    cached) and the block it would take stay within a quarter of the
+    host's physical memory ``phys``.  This bounds what results held by
+    callers can pin."""
+    return 4 * (owned + pinned_block_bytes(nbytes)) <= phys
+
+
+def _read_off_card(ds: DataSet, b: torch.Tensor) -> np.ndarray:
+    """``b`` (``ds``'s tensor on a card) in host memory, as one
+    ``transport.to_host`` span.  The destination is a page-locked block
+    of torch's caching host allocator, which serves the whole process:
+    once a caller drops its array, the block serves a later read of the
+    same size, from any transport.  The array holds its block, so two
+    live results never share one.  The span's ``pinned`` says which
+    destination was taken, ``reused`` whether the allocator had the
+    block cached.  A fresh pageable array instead where
+    :func:`pin_fits` refuses or the page-locked allocation fails."""
+    with _copy_span("transport.to_host", ds, dataset=ds.name,
+                    device=str(b.device), pinned=False,
+                    reused=False) as attrs:
+        dst = None
+        before = torch.cuda.host_memory_stats()
+        phys = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+        if pin_fits(before["allocated_bytes.current"], _nbytes(b), phys):
+            try:
+                dst = torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
+            except RuntimeError:        # no page-locked memory to be had
+                pass
+        if dst is None:
+            out = to_numpy(b)
+        else:
+            after = torch.cuda.host_memory_stats()
+            attrs.update(pinned=True, reused=after["num_host_alloc"]
+                         == before["num_host_alloc"])
+            dst.copy_(b.detach())
+            out = dst.numpy()
+        attrs["bytes"] = out.nbytes
+    return out
+
+
 class ShardedTensor:
     """A dataset's backing on a :class:`ShardedTransport` between steps:
     one tensor per slot, each the slot's block along ``dim`` (slot order
@@ -584,9 +632,13 @@ class CudaTransport(Transport):
 
     def read(self, ds: DataSet) -> np.ndarray:
         """``ds`` in host memory; a copy off the device (or off every
-        slot, as one gather) is a ``transport.to_host`` span."""
+        slot, as one gather) is a ``transport.to_host`` span.  Off a
+        card the destination is a recycled page-locked block
+        (:func:`_read_off_card`)."""
         b = ds.materialise()
         if isinstance(b, torch.Tensor):
+            if b.device.type == "cuda":
+                return _read_off_card(ds, b)
             where = {"device": str(b.device)}
         elif isinstance(b, ShardedTensor):
             where = {"device": _devices_of(b.devices),

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, smoke_batch
-from repro_torch.core import CudaTransport, PluginRunner
+from repro_torch.core import CudaTransport, DataSet, PluginRunner
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.flash_attention.ref import mha_ref, mha_tiled_ref
@@ -31,6 +31,7 @@ from repro_torch.kernels.sino_filter.ref import (filter_sino_batched_ref,
                                                  scale_spectrum_batched_ref,
                                                  scale_spectrum_ref)
 from repro_torch.models import build_model
+from repro_torch.obs import Trace
 from repro_torch.training import greedy_generate
 from repro_torch.tomo import (ParallelGeometry, phantom_stack,
                               simulate_raw_scan, standard_chain)
@@ -409,6 +410,67 @@ def test_chain_on_card_matches_cpu(cuda):
         runner = PluginRunner(chain, CudaTransport(device))
         recons.append(runner.transport.read(runner.run()["recon"]))
     np.testing.assert_allclose(recons[0], recons[1], rtol=1e-3, atol=1e-4)
+
+
+#: a volume's shape for the reads below: 3 x 320 x 320 float32,
+#: 1,228,800 B, a 2 MiB page-locked block
+READ_SHAPE = (3, 320, 320)
+
+
+def _read_on_card(cuda, seed):
+    """A fresh card-resident dataset of READ_SHAPE read through a
+    ``CudaTransport``: (array, the tensor's own host copy, the span)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    t = torch.randn(READ_SHAPE, device=cuda, generator=g)
+    ds = DataSet("recon", READ_SHAPE, np.float32, ("z", "y", "x"),
+                 backing=t, trace=Trace())
+    vol = CudaTransport(cuda).read(ds)
+    (span,) = [s for s in ds.trace.spans() if s.name == "transport.to_host"]
+    return vol, t.cpu().numpy(), span
+
+
+def test_read_off_card_is_a_page_locked_copy_bit_for_bit(cuda):
+    vol, want, span = _read_on_card(cuda, 0)
+    assert vol.dtype == want.dtype and vol.shape == want.shape
+    assert vol.tobytes() == want.tobytes()
+    assert vol.flags.c_contiguous and vol.flags.writeable
+    assert span.attrs["pinned"] is True
+    assert span.attrs["bytes"] == vol.nbytes == 1_228_800
+    assert span.attrs["device"] == f"cuda:{torch.cuda.current_device()}"
+
+
+def test_a_dropped_results_block_serves_the_next_read(cuda):
+    vol, _, first = _read_on_card(cuda, 1)
+    assert first.attrs["pinned"] is True
+    del vol
+    n = torch.cuda.host_memory_stats()["num_host_alloc"]
+    vol, want, again = _read_on_card(cuda, 2)
+    assert again.attrs["pinned"] is True and again.attrs["reused"] is True
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == n
+    assert vol.tobytes() == want.tobytes()
+
+
+def test_a_held_result_is_never_handed_out_again(cuda):
+    held, want, _ = _read_on_card(cuda, 3)
+    for seed in (4, 5, 6):
+        vol, other, span = _read_on_card(cuda, seed)
+        assert span.attrs["pinned"] is True
+        assert vol.ctypes.data != held.ctypes.data
+        assert vol.tobytes() == other.tobytes() != want.tobytes()
+        del vol
+    assert held.tobytes() == want.tobytes()
+
+
+def test_read_off_card_falls_back_to_pageable_when_the_cap_refuses(
+        cuda, monkeypatch):
+    from repro_torch.core import transport
+    monkeypatch.setattr(transport, "pin_fits", lambda *a: False)
+    n = torch.cuda.host_memory_stats()["num_host_alloc"]
+    vol, want, span = _read_on_card(cuda, 7)
+    assert span.attrs["pinned"] is False and span.attrs["reused"] is False
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == n
+    assert vol.tobytes() == want.tobytes()
+    assert vol.flags.c_contiguous and vol.flags.writeable
 
 
 def _scan_chain(scan, n, angles, rows):
