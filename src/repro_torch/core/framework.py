@@ -294,8 +294,10 @@ class PluginRunner:
         else:
             label = "+".join(p.name for p in group)
             with self.profiler.timer(label, "process", self.devices,
-                                     fused=True):
+                                     fused=True) as timer, \
+                    tally() as launched:
                 self.transport.run_fused(group)
+            timer.span.attrs.update(launched.launch_attrs())
         self.complete_step()
         return True
 

@@ -133,6 +133,15 @@ class BasePlugin:
     #: None: such a gang runs the step once per member.
     process_frames_batched = None
 
+    def frame_bytes(self, frame_shapes: Sequence[tuple[int, ...]]) -> int:
+        """Device bytes that :meth:`process_frames` holds at once for
+        each frame of its block, beyond the block's inputs and outputs
+        (``frame_shapes``: one frame's shape per input).  A transport
+        that runs a whole frame stack in one call cuts it into blocks of
+        frames whose working set fits the device.  0 (the default):
+        undeclared, the stack runs in one call."""
+        return 0
+
     # -- optional hooks -------------------------------------------------
     def pre_process(self) -> None:  # once, before the frame loop
         pass

@@ -44,7 +44,7 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..device import resolve_device
-from ..kernels.tally import tally
+from ..kernels.tally import note_blocks, tally
 from ..obs.trace import current_trace
 from .chunking import DEFAULT_CACHE_BYTES, naive_chunks, optimise_chunks
 from .dataset import DataSet
@@ -125,10 +125,11 @@ def _to_device_span(ds: DataSet | None, a, to: torch.device, **attrs):
 
 @contextlib.contextmanager
 def _copy_span(name: str, ds: DataSet, **attrs):
-    """Record ``name`` (``transport.to_device``/``transport.to_host``)
-    around the block, on the epoch clock, on the trace of the request
-    that owns ``ds``, else on the current trace, else nowhere.  Yields
-    the span's attributes, which the block may complete."""
+    """Record ``name`` (``transport.to_device``, ``transport.to_host``,
+    ``transport.alltoall``) around the block, on the epoch clock, on the
+    trace of the request that owns ``ds``, else on the current trace,
+    else nowhere.  Yields the span's attributes, which the block may
+    complete."""
     tr = ds.trace if ds.trace is not None else current_trace()
     t0 = time.time()
     yield attrs
@@ -184,6 +185,15 @@ def _read_off_card(ds: DataSet, b: torch.Tensor) -> np.ndarray:
     return out
 
 
+def _bounds(sizes: Sequence[int]) -> list[tuple[int, int]]:
+    """Each block's [lo, hi) when blocks of ``sizes`` follow each other."""
+    out, at = [], 0
+    for n in sizes:
+        out.append((at, at + n))
+        at += n
+    return out
+
+
 class ShardedTensor:
     """A dataset's backing on a :class:`ShardedTransport` between steps:
     one tensor per slot, each the slot's block along ``dim`` (slot order
@@ -215,9 +225,16 @@ class ShardedTensor:
         return self.shards[:1] if self.dim is None else self.shards
 
     def to(self, device) -> torch.Tensor:
-        """The whole as one tensor on ``device``."""
-        parts = [t.to(device) for t in self.blocks()]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, self.dim)
+        """The whole as one tensor on ``device``: each slot block copied
+        into its place in one allocation (no second copy of the whole
+        through a concatenation)."""
+        blocks = self.blocks()
+        if len(blocks) == 1:
+            return blocks[0].to(device)
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        for t, (lo, hi) in zip(blocks, self._spans()):
+            out.narrow(self.dim, lo, hi - lo).copy_(t)
+        return out
 
     def numpy(self) -> np.ndarray:
         return self.to("cpu").numpy()
@@ -236,11 +253,7 @@ class ShardedTensor:
 
     def _spans(self) -> list[tuple[int, int]]:
         """Each slot block's [lo, hi) along ``dim``."""
-        spans, at = [], 0
-        for t in self.shards:
-            spans.append((at, at + t.shape[self.dim]))
-            at += t.shape[self.dim]
-        return spans
+        return _bounds([t.shape[self.dim] for t in self.shards])
 
     def read_region(self, axis: int, lo: int, hi: int) -> torch.Tensor:
         """Entries [lo, hi) along ``axis``, as one tensor on the first
@@ -317,6 +330,84 @@ def _with_consts(plugin: BasePlugin, consts: dict[str, Any]) -> BasePlugin:
     for k, v in consts.items():
         setattr(bound, k, v)
     return bound
+
+
+@dataclasses.dataclass(frozen=True)
+class _StepSpec:
+    """What a built step keeps of the plugin it was built for: the
+    patterns, the outputs' shapes and dtypes, the frames a call takes,
+    and a copy of the plugin without its datasets or constants.  A
+    built step is shared by every later plugin instance with its key,
+    so it holds none of the data that the first instance ran on."""
+
+    plugin: BasePlugin
+    in_pats: tuple[Pattern, ...]
+    out_pats: tuple[Pattern, ...]
+    out_shapes: tuple[tuple[int, ...], ...]
+    out_dtypes: tuple[torch.dtype, ...]
+    m: int
+
+
+def _step_spec(plugin: BasePlugin) -> _StepSpec:
+    bare = copy.copy(plugin)
+    bare.in_data, bare.out_data = [], []
+    for k in plugin.jit_constants():
+        setattr(bare, k, None)       # each call binds its own
+    return _StepSpec(
+        bare, tuple(pd.pattern for pd in plugin.in_data),
+        tuple(pd.pattern for pd in plugin.out_data),
+        tuple(pd.dataset.shape for pd in plugin.out_data),
+        tuple(torch_dtype(pd.dataset.dtype) for pd in plugin.out_data),
+        plugin.in_data[0].n_frames if plugin.in_data else 1)
+
+
+def frame_budget(device: torch.device, need: int) -> int | None:
+    """The bytes a per-frame step's declared working set may take on
+    ``device`` at once, for a stack that declares ``need`` bytes: a
+    quarter of what the card has free, counting the blocks torch's
+    caching allocator holds unused.  The rest leaves room for the
+    outputs and for what a declaration leaves out: the spectrum scale's
+    step holds about 1.7 times its three declared buffers at once (the
+    inverse transform's copy of its input, cuFFT's work area), so at a
+    third its blocks of a card's share of the whole scan peaked at 61 of
+    80 GB.  None (no limit) off a card, and for a stack that needs at
+    most a sixteenth of the card: it fits unless the card is already
+    three quarters full, and asking the CUDA driver what is free costs
+    each small step milliseconds of an idle card."""
+    if device.type != "cuda" or 16 * need <= \
+            torch.cuda.get_device_properties(device).total_memory:
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    unused = (torch.cuda.memory_reserved(device)
+              - torch.cuda.memory_allocated(device))
+    return (free + unused) // 4
+
+
+def _per_frame(bound: BasePlugin, frames: Sequence[torch.Tensor]
+               ) -> list[torch.Tensor]:
+    """``process_frames`` of a per-frame plugin over the whole frame
+    stack: in one call when the plugin's declared working set
+    (:meth:`BasePlugin.frame_bytes`) for every frame fits
+    :func:`frame_budget`, else in blocks of frames that each fit, every
+    block's outputs written into outputs allocated once.  Notes the
+    blocks it ran (:func:`~repro_torch.kernels.tally.note_blocks`)."""
+    nf = frames[0].shape[0]
+    per = bound.frame_bytes([tuple(f.shape[1:]) for f in frames])
+    budget = frame_budget(frames[0].device, nf * per) if per else None
+    k = nf if budget is None else max(1, min(nf, budget // per))
+    if k >= nf:
+        note_blocks(1)
+        return _as_list(bound.process_frames(frames))
+    outs: list[torch.Tensor] = []
+    for s in range(0, nf, k):
+        res = _as_list(bound.process_frames([f[s:s + k] for f in frames]))
+        if not outs:
+            outs = [r.new_empty((nf,) + tuple(r.shape[1:])) for r in res]
+        for o, r in zip(outs, res):
+            o[s:s + r.shape[0]].copy_(r)
+        del res
+    note_blocks(-(-nf // k))
+    return outs
 
 
 class GangSignatureMismatch(ValueError):
@@ -537,31 +628,28 @@ class CudaTransport(Transport):
     def _plugin_fn(self, plugin: BasePlugin):
         """Step ``(consts, *tensors) -> outs``.  ``consts`` are passed as
         arguments, so a built step can be replayed for another plugin
-        instance with the same key (same chain, new dataset)."""
-        in_pats = [pd.pattern for pd in plugin.in_data]
-        out_pats = [pd.pattern for pd in plugin.out_data]
-        out_shapes = [pd.dataset.shape for pd in plugin.out_data]
-        out_dtypes = [torch_dtype(pd.dataset.dtype) for pd in plugin.out_data]
-        m = plugin.in_data[0].n_frames if plugin.in_data else 1
+        instance with the same key (same chain, new dataset); it keeps
+        only :func:`_step_spec`'s data-free description."""
+        spec = _step_spec(plugin)
 
         def step(consts, *arrays, shapes=None):
             # ``shapes``: the outputs' shapes when the inputs are a
-            # streaming slab rather than the whole datasets
-            bound = _with_consts(plugin, consts)
-            frames = [p.to_frames(a) for p, a in zip(in_pats, arrays)]
-            if m == 1:
-                # per-frame plugins take the whole frame stack at once
-                res = _as_list(bound.process_frames(frames))
+            # streaming slab or a slot's share rather than the whole
+            # datasets
+            bound = _with_consts(spec.plugin, consts)
+            frames = [p.to_frames(a) for p, a in zip(spec.in_pats, arrays)]
+            if spec.m == 1:
+                res = _per_frame(bound, frames)
             else:
                 nf = frames[0].shape[0]
                 groups = [_as_list(bound.process_frames(
-                    [f[s:s + m] for f in frames]))
-                    for s in range(0, nf, m)]
+                    [f[s:s + spec.m] for f in frames]))
+                    for s in range(0, nf, spec.m)]
                 res = [torch.cat(parts) for parts in zip(*groups)]
             return tuple(pat.from_frames(r, shp).to(dt)
-                         for r, pat, shp, dt in zip(res, out_pats,
-                                                    shapes or out_shapes,
-                                                    out_dtypes))
+                         for r, pat, shp, dt in zip(
+                             res, spec.out_pats, shapes or spec.out_shapes,
+                             spec.out_dtypes))
 
         return step
 
@@ -573,31 +661,28 @@ class CudaTransport(Transport):
         the plugin's ``process_frames_batched`` hook, which takes every
         member's constants and frame count, when they differ
         (:meth:`_gang_check` refuses any other gang)."""
-        in_pats = [pd.pattern for pd in plugin.in_data]
-        out_pats = [pd.pattern for pd in plugin.out_data]
-        out_shapes = [pd.dataset.shape for pd in plugin.out_data]
-        out_dtypes = [torch_dtype(pd.dataset.dtype) for pd in plugin.out_data]
+        spec = _step_spec(plugin)
 
         def step(all_consts, members, shapes=None):
             # ``shapes``: each member's outputs' shapes when the inputs
             # are a slot's share rather than the whole datasets
-            frames = [[p.to_frames(a) for p, a in zip(in_pats, arrays)]
+            frames = [[p.to_frames(a) for p, a in zip(spec.in_pats, arrays)]
                       for arrays in members]
             counts = [f[0].shape[0] for f in frames]
             stacked = [torch.cat(col) for col in zip(*frames)]
             del frames
             if _same_consts(all_consts):
                 res = _as_list(_with_consts(
-                    plugin, all_consts[0]).process_frames(stacked))
+                    spec.plugin, all_consts[0]).process_frames(stacked))
             else:
-                res = _as_list(plugin.process_frames_batched(
+                res = _as_list(spec.plugin.process_frames_batched(
                     stacked, all_consts, counts))
             del stacked
             per_out = [torch.split(r, counts) for r in res]
             return [tuple(pat.from_frames(parts[j], shp).to(dt)
                           for parts, pat, shp, dt in zip(
-                              per_out, out_pats, shapes or out_shapes,
-                              out_dtypes))
+                              per_out, spec.out_pats,
+                              shapes or spec.out_shapes, spec.out_dtypes))
                     for j in range(len(members))]
 
         return step
@@ -894,6 +979,14 @@ def slots_on(device: str | torch.device = "cuda",
     return _slot_devices((dev,) * n)
 
 
+def split_sizes(n: int, k: int) -> list[int]:
+    """``n`` entries dealt over ``k`` slots as Savu's MPI mode deals
+    frames to its processes: ``n // k`` each, and one more to each of
+    the first ``n % k`` slots, in slot order."""
+    q, r = divmod(n, k)
+    return [q + 1 if j < r else q for j in range(k)]
+
+
 def _narrow(a, dim: int, lo: int, n: int):
     """Entries [lo, lo + n) of ``a`` (array or tensor) along ``dim``."""
     return a[(slice(None),) * dim + (slice(lo, lo + n),)]
@@ -921,9 +1014,12 @@ class ShardedTransport(CudaTransport):
     sequence of devices, repeats allowed (``("cuda:0",) * 4`` on one
     card, ``("cpu",) * 4`` in the tests); slots on one device compute
     apart exactly as slots on different cards do.  A split that does
-    not divide raises ``ValueError``, as the reference's ``device_put``
-    does.  Streaming windows run on the first slot, where the growing
-    datasets live; barrier steps run sharded.  :meth:`plugin_cost`
+    not divide gives the first slots one entry more
+    (:func:`split_sizes`), as Savu's MPI mode gives its processes
+    unequal frame counts; the reference's ``device_put`` refuses it.
+    Only a dim shorter than the slot count raises.  Streaming windows
+    run on the first slot, where the growing datasets live; barrier
+    steps run sharded.  :meth:`plugin_cost`
     counts one slot's step, as the reference's cost analysis of an SPMD
     program is per device."""
 
@@ -969,28 +1065,38 @@ class ShardedTransport(CudaTransport):
                 f"core dim {dims[0]}; a slot computes on whole frames")
         return dims[0] if dims else None
 
-    def _local(self, name: str, shape: Sequence[int],
-               dim: int | None) -> tuple[int, ...]:
-        """A slot's share of ``shape`` split along ``dim``."""
+    def _local(self, name: str, shape: Sequence[int], dim: int | None,
+               slot: int = 0) -> tuple[int, ...]:
+        """Slot ``slot``'s share of ``shape`` split along ``dim``."""
+        return self._shares(name, shape, dim)[slot]
+
+    def _shares(self, name: str, shape: Sequence[int],
+                dim: int | None) -> list[tuple[int, ...]]:
+        """Every slot's share of ``shape`` split along ``dim``
+        (:func:`split_sizes`)."""
         shape = tuple(shape)
-        if dim is None:
-            return shape
         n = len(self.slots)
-        if shape[dim] % n:
+        if dim is None:
+            return [shape] * n
+        if 0 < shape[dim] < n:
             raise ValueError(
                 f"dataset {name!r}: dim {dim} of size {shape[dim]} does not "
-                f"split over {n} slots (its size should be divisible by "
-                f"{n})")
-        return shape[:dim] + (shape[dim] // n,) + shape[dim + 1:]
+                f"split over {n} slots (a slot would get no entry)")
+        return [shape[:dim] + (k,) + shape[dim + 1:]
+                for k in split_sizes(shape[dim], n)]
+
+    def _slot_bounds(self, name: str, shape: Sequence[int],
+                     dim: int) -> list[tuple[int, int]]:
+        """Each slot's [lo, hi) along ``dim`` of ``shape``."""
+        return _bounds([sh[dim] for sh in self._shares(name, shape, dim)])
 
     def _scatter(self, a, dim: int | None, name: str,
                  ds: DataSet | None = None) -> ShardedTensor:
         """A host array or one-device tensor as slot blocks; the scatter
         of ``ds``'s host data is one ``transport.to_device`` span."""
-        local = self._local(name, a.shape, dim)
-        blocks = [a if dim is None else _narrow(a, dim, j * local[dim],
-                                                local[dim])
-                  for j in range(len(self.slots))]
+        blocks = ([a] * len(self.slots) if dim is None else
+                  [_narrow(a, dim, lo, hi - lo)
+                   for lo, hi in self._slot_bounds(name, a.shape, dim)])
         with _to_device_span(ds, a, self.device,
                              bytes=sum(_nbytes(b) for b in blocks),
                              device=_devices_of(self.slots),
@@ -1003,47 +1109,59 @@ class ShardedTransport(CudaTransport):
         return ShardedTensor([t.to(dev) for dev in self.slots], None,
                              self.slots)
 
-    def _resplit(self, st: ShardedTensor, dim: int | None, name: str,
+    def _resplit(self, st: ShardedTensor, dim: int | None, ds: DataSet,
                  record: bool = True) -> ShardedTensor:
-        """``st`` split along ``dim`` over the slots.  From one split dim
-        to another this is the all-to-all: slot i's block j goes to slot
-        j.  From replicated each slot cuts its own replica; to
-        replicated every slot gathers every block."""
+        """``st`` (``ds``'s backing) split along ``dim`` over the slots.
+        From one split dim to another this is the all-to-all: slot i's
+        block j goes to slot j.  From replicated each slot cuts its own
+        replica; to replicated every slot gathers every block.  With
+        ``record``, a move between slots is counted (``stats()``) and
+        is one ``transport.alltoall`` span on ``ds``'s trace (attrs
+        ``bytes`` moved between slots, ``dataset``, ``slots``,
+        ``from_dim``, ``to_dim``), ending when every slot has synced."""
         if st.devices != self.slots:          # another transport's slots
-            return self._scatter(st.to(self.device), dim, name)
+            return self._scatter(st.to(self.device), dim, ds.name)
         if st.dim == dim:
             return st
-        local = self._local(name, st.shape, dim)
+        bounds = (None if dim is None
+                  else self._slot_bounds(ds.name, st.shape, dim))
         if st.dim is None:
             return ShardedTensor(
-                [_narrow(t, dim, j * local[dim], local[dim]).contiguous()
-                 for j, t in enumerate(st.shards)], dim, self.slots)
-        t0 = time.perf_counter()
-        moved = 0
-        shards = []
-        for j, dev in enumerate(self.slots):
-            parts = []
-            for i, src in enumerate(st.shards):
-                blk = src if dim is None else _narrow(
-                    src, dim, j * local[dim], local[dim])
-                if i != j:
-                    moved += blk.numel() * blk.element_size()
-                if blk.device != dev:
-                    blk = blk.contiguous().to(dev, non_blocking=True)
-                parts.append(blk)
-            shards.append(torch.cat(parts, st.dim))
-        if record:
-            self._sync()
-            self.alltoalls += 1
-            self.alltoall_bytes += moved
-            self.alltoall_s += time.perf_counter() - t0
+                [_narrow(t, dim, lo, hi - lo).contiguous()
+                 for t, (lo, hi) in zip(st.shards, bounds)], dim,
+                self.slots)
+        span = (_copy_span("transport.alltoall", ds, dataset=ds.name,
+                           slots=len(self.slots), from_dim=st.dim,
+                           to_dim=dim) if record
+                else contextlib.nullcontext({}))
+        with span as attrs:
+            t0 = time.perf_counter()
+            moved = 0
+            shards = []
+            for j, dev in enumerate(self.slots):
+                parts = []
+                for i, src in enumerate(st.shards):
+                    blk = src if dim is None else _narrow(
+                        src, dim, bounds[j][0], bounds[j][1] - bounds[j][0])
+                    if i != j:
+                        moved += blk.numel() * blk.element_size()
+                    if blk.device != dev:
+                        blk = blk.contiguous().to(dev, non_blocking=True)
+                    parts.append(blk)
+                shards.append(torch.cat(parts, st.dim))
+            if record:
+                self._sync()
+                attrs["bytes"] = moved
+                self.alltoalls += 1
+                self.alltoall_bytes += moved
+                self.alltoall_s += time.perf_counter() - t0
         return ShardedTensor(shards, dim, self.slots)
 
     def _split(self, ds: DataSet, dim: int | None,
                record: bool = True) -> ShardedTensor:
         b = ds.materialise()
         if isinstance(b, ShardedTensor):
-            return self._resplit(b, dim, ds.name, record)
+            return self._resplit(b, dim, ds, record)
         return self._scatter(b, dim, ds.name, ds)
 
     def device_put(self, ds: DataSet, pattern_name: str | None = None,
@@ -1088,22 +1206,25 @@ class ShardedTransport(CudaTransport):
                 for dev in dict.fromkeys(self.slots)}
 
     def _out_shapes(self, plugin: BasePlugin, layout: tuple
-                    ) -> list[tuple[int, ...]]:
-        """A slot's share of each output of a sharded step, after
+                    ) -> list[list[tuple[int, ...]]]:
+        """Each slot's share of each output of a sharded step, after
         checking that the plugin's ``n_frames`` divides each slot's
         frames."""
         dims_in, dims_out, _ = layout
         m = plugin.in_data[0].n_frames if plugin.in_data else 1
+        slots = range(len(self.slots))
         if m > 1:
             pd = plugin.in_data[0]
-            nf = pd.pattern.n_frames(self._local(
-                pd.dataset.name, pd.dataset.shape, dims_in[0]))
-            if nf % m:
-                raise ValueError(
-                    f"sharded transport requires n_frames({m}) | each "
-                    f"slot's frames({nf}) for plugin {plugin.name}")
-        return [self._local(pd.dataset.name, pd.dataset.shape, d)
-                for pd, d in zip(plugin.out_data, dims_out)]
+            for j in slots:
+                nf = pd.pattern.n_frames(self._local(
+                    pd.dataset.name, pd.dataset.shape, dims_in[0], j))
+                if nf % m:
+                    raise ValueError(
+                        f"sharded transport requires n_frames({m}) | each "
+                        f"slot's frames({nf}) for plugin {plugin.name}")
+        return [[self._local(pd.dataset.name, pd.dataset.shape, d, j)
+                 for pd, d in zip(plugin.out_data, dims_out)]
+                for j in slots]
 
     def _run_step(self, plugin: BasePlugin, step, consts: dict,
                   arrays: Sequence[ShardedTensor], layout: tuple
@@ -1121,7 +1242,7 @@ class ShardedTransport(CudaTransport):
             with _on(dev):
                 per_slot.append(step(consts[dev],
                                      *[a.shards[j] for a in arrays],
-                                     shapes=shapes))
+                                     shapes=shapes[j]))
         return [ShardedTensor([o[k] for o in per_slot], d, self.slots)
                 for k, d in enumerate(dims_out)]
 
@@ -1159,7 +1280,7 @@ class ShardedTransport(CudaTransport):
         for i, (p, step, consts, layout) in enumerate(
                 zip(plugins, steps, all_consts, layouts)):
             if i:
-                cur = [self._resplit(a, d, pd.dataset.name)
+                cur = [self._resplit(a, d, pd.dataset)
                        for a, d, pd in zip(cur, layout[0], p.in_data)]
             cur = self._run_step(p, step, consts, cur, layout)
         for pd, o in zip(last.out_data, cur):
@@ -1188,7 +1309,8 @@ class ShardedTransport(CudaTransport):
             with _on(dev):
                 per_slot.append(step([c[dev] for c in all_consts],
                                      [[a.shards[j] for a in m]
-                                      for m in members], shapes=shapes))
+                                      for m in members],
+                                     shapes=shapes and shapes[j]))
         del members
         for jm, p in enumerate(plugins):
             for k, (pd, d) in enumerate(zip(p.out_data, dims_out)):
@@ -1204,7 +1326,8 @@ class ShardedTransport(CudaTransport):
         one slot's step, as the reference's cost analysis of an SPMD
         program is per device."""
         layout = self._layout(plugins[0])
-        shapes = self._out_shapes(plugins[0], layout) if layout[2] else None
+        shapes = (self._out_shapes(plugins[0], layout)[0] if layout[2]
+                  else None)
         return [[self._split(pd.dataset, d, record=False).shards[0]
                  for pd, d in zip(p.in_data, layout[0])]
                 for p in plugins], shapes

@@ -29,7 +29,9 @@ def scale_spectrum_cuda(spec: torch.Tensor, filt: torch.Tensor,
 
     One scan: filt (NF,) float32 and no ``counts``.  A gang of J scans
     in one launch: spec holds member j's ``counts[j]`` rows after member
-    j - 1's, and filt (J, NF) float32 is each member's own filter."""
+    j - 1's, and filt (J, NF) float32 is each member's own filter.  The
+    kernel indexes bins in 32 bits below 2**31 bins and in 64 bits at or
+    above it."""
     build.require(spec, "scale_spectrum spec", (torch.complex64,),
                   (None, None))
     rows, nf = spec.shape
@@ -43,9 +45,6 @@ def scale_spectrum_cuda(spec: torch.Tensor, filt: torch.Tensor,
                          f"{rows} rows into 1 to 65535 members")
     build.require(filt, "scale_spectrum filt", (torch.float32,), shape,
                   spec.device)
-    if spec.numel() >= 2**31:
-        raise ValueError(f"scale_spectrum: {spec.numel()} bins, the kernel "
-                         f"indexes bins in 32 bits (< 2**31)")
     out = torch.empty_like(spec)
     if spec.numel() == 0:
         return out

@@ -6,7 +6,8 @@ kernel itself was launched) into every tally open on the calling
 thread.  A launch is counted here and nowhere else: :func:`note` also
 adds it to the wrapper's process-wide ``launches`` count.  ``CudaTransport.plugin_cost`` reads the flops and bytes of a
 step's run; the runner and the gang scheduler read the launches made
-inside a step's ``process`` span.  A count is computed only when an open
+inside a step's ``process`` span, and the frame blocks a built step
+ran in (:func:`note_blocks`).  A count is computed only when an open
 tally asks for costs, so the launch tallies around every step cost
 nothing more than a dictionary update per launch.
 
@@ -38,10 +39,15 @@ class Tally:
         self.bytes = 0.0
         #: kernel name -> launches of the hand-written kernel
         self.launches: dict[str, int] = {}
+        #: the most frame blocks one call of a built step ran in
+        self.blocks = 1
 
     def launch_attrs(self) -> dict[str, int]:
-        """The launches as span attributes, ``launches.<kernel>``."""
-        return {f"launches.{k}": n for k, n in sorted(self.launches.items())}
+        """The launches as span attributes, ``launches.<kernel>``, and
+        ``blocks``."""
+        return {**{f"launches.{k}": n
+                   for k, n in sorted(self.launches.items())},
+                "blocks": self.blocks}
 
 
 @contextlib.contextmanager
@@ -82,6 +88,13 @@ def note(name: str, cost: Callable[[], dict[str, float]],
         if t.costs:
             t.flops += work["flops"]
             t.bytes += work["bytes"]
+
+
+def note_blocks(n: int) -> None:
+    """Record that a built step ran its frames in ``n`` blocks (1: in
+    one call) into every tally open on this thread."""
+    for t in getattr(_STATE, "open", ()):
+        t.blocks = max(t.blocks, n)
 
 
 @contextlib.contextmanager

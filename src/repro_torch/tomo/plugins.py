@@ -267,6 +267,13 @@ class SinogramFilter(BaseFilter):
         return filter_sino(block, self._filt,
                            use_pallas=self.params["use_pallas"])
 
+    def frame_bytes(self, frame_shapes):
+        """A sinogram's rows padded to the FFT length (float32), their
+        spectrum and its scaled copy (complex64)."""
+        ((n_angles, _),) = frame_shapes
+        nf = self._filt.shape[-1]
+        return n_angles * (2 * (nf - 1) * 4 + 2 * nf * 8)
+
     def process_frames_batched(self, frames, consts, counts):
         """A gang's sinograms (member j's ``counts[j]`` after member j -
         1's), each member with its own filter (its ``cutoff``): one

@@ -535,6 +535,46 @@ def test_gang_on_card_launches_each_kernel_once(cuda):
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
 
 
+def _spectrum_kernels(run) -> list[str]:
+    """The names of the spectrum-scale kernels that ``run()`` launched
+    (their template argument is the index type)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if "scale_spectrum" in e.key and "kernel" in e.key]
+
+
+def test_spectrum_scale_indexes_in_32_bits_below_2_31_bins(cuda, rng):
+    """Today's shapes (a 16-row band: 1801 x 16 x 4097 bins) keep the
+    32-bit kernel."""
+    spec = torch.randn(1801 * 16, 4097, dtype=torch.complex64, device=cuda)
+    filt = torch.rand(4097, device=cuda)
+    names = _spectrum_kernels(lambda: scale_spectrum_cuda(spec, filt))
+    assert names and all("<unsigned int>" in n for n in names), names
+
+
+def test_spectrum_scale_beyond_2_31_bins_on_card(cuda):
+    """2 rows of 2**30 + 1 bins (2**31 + 2 bins, 17.2 GB a copy): the
+    64-bit kernel, equal bit for bit to ``spec * filt``; a float4 at the
+    row edge and the odd tail included."""
+    nf = 2**30 + 1
+    free, _ = torch.cuda.mem_get_info(cuda)
+    if free < 60e9:
+        pytest.skip(f"needs 60 GB free on the card, has {free / 1e9:.1f}")
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    spec = torch.randn(2, nf, dtype=torch.complex64, device=cuda,
+                       generator=gen)
+    filt = torch.rand(nf, device=cuda, generator=gen)
+    got = []
+    names = _spectrum_kernels(lambda: got.append(
+        scale_spectrum_cuda(spec, filt)))
+    assert names and all("<unsigned long long>" in n for n in names), names
+    (got,) = got
+    assert torch.equal(got, scale_spectrum_ref(spec, filt))
+
+
 @pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
 def test_four_slots_on_one_card_equal_the_one_card_chain(cuda, fuse):
     """ShardedTransport over ("cuda:0",) * 4: the reconstruction equals
@@ -554,6 +594,41 @@ def test_four_slots_on_one_card_equal_the_one_card_chain(cuda, fuse):
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
     assert len(r.datasets["recon"].backing.shards) == 4
     assert tr.stats()["alltoall_bytes"] == 96 * 4 * 64 * 4 * 3 // 4
+
+
+def test_frame_budget_on_card(cuda):
+    """A stack that needs at most a sixteenth of the card runs whole
+    without asking the CUDA driver; a larger one gets a quarter of what
+    is free."""
+    from repro_torch.core.transport import frame_budget
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    assert frame_budget(cuda, total // 16) is None
+    budget = frame_budget(cuda, total)
+    assert 0 < budget <= total // 4
+
+
+def test_uneven_split_over_four_slots_on_one_card(cuda):
+    """97 angles and 6 rows over ("cuda:0",) * 4: projections 25/24/24/24,
+    sinograms 2/2/1/1, each kernel once a slot; the volume equals the
+    one-card run."""
+    from repro_torch.core import ShardedTransport
+    scan = simulate_raw_scan(phantom_stack(64, 6),
+                             ParallelGeometry(97, 64, 6), device=cuda)
+    one = PluginRunner(_scan_chain(scan, 64, 97, 6), CudaTransport(cuda))
+    want = one.transport.read(one.run()["recon"])
+    tr = ShardedTransport(("cuda:0",) * 4)
+    r = PluginRunner(_scan_chain(scan, 64, 97, 6), tr)
+    r.prepare()
+    r.step()
+    assert [t.shape[0] for t in r.datasets["tomo"].backing.shards] == \
+        [25, 24, 24, 24]
+    while r.step():
+        pass
+    r.finalise()
+    recon = r.datasets["recon"].backing
+    assert [t.shape[0] for t in recon.shards] == [2, 2, 1, 1]
+    np.testing.assert_allclose(tr.read(r.datasets["recon"]), want,
+                               rtol=1e-3, atol=1e-4)
 
 
 def test_each_kernel_launches_on_the_second_card(cuda, rng):

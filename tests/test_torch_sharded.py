@@ -9,9 +9,11 @@ one-device mesh (rtol 1e-3, atol 1e-4: the chain's bound,
 slice's arithmetic does not depend on the slot that computes it).  The
 split itself is held against the JAX transport over 4 host-faked
 devices, run in a subprocess with ``--xla_force_host_platform_device_
-count=4`` as ``benchmarks/bench_scaling.py`` does; both sides refuse a
-split that does not divide.  Then the port's counterparts, on 2 slots,
-of the reference's tests that build a ``ShardedTransport``
+count=4`` as ``benchmarks/bench_scaling.py`` does.  A split that does
+not divide the reference refuses; the port deals it as Savu's MPI mode
+deals frames, the first slots one entry more, and agrees with one slot
+and with the reference's one-device run.  Then the port's
+counterparts, on 2 slots, of the reference's tests that build a ``ShardedTransport``
 (tests/test_framework.py, test_checkpoint.py, test_sweep.py,
 test_service.py), and a streamed run equal to the batch run.
 """
@@ -175,12 +177,58 @@ def test_four_slots_match_jax_over_four_devices(scan, jax_four_devices,
 
 
 def test_indivisible_split_raises_on_both_sides(jax_four_devices):
+    """5 angles over 2 slots: the reference refuses the split; the port
+    splits the projections 3 + 2 (a difference on purpose) and agrees
+    with one slot."""
     _, info = jax_four_devices
     assert info["refused"] and "divisible by 2" in info["refused"]
-    with pytest.raises(ValueError, match=r"dim 0 of size 5 does not "
-                                         r"split over 2 slots"):
-        PluginRunner(standard_chain(16, 5, 2, device="cpu"),
-                     _slots(2)).run()
+    r = PluginRunner(standard_chain(16, 5, 2, device="cpu"), _slots(2))
+    r.prepare()
+    r.step()
+    assert [tuple(t.shape) for t in r.datasets["tomo"].backing.shards] == \
+        [(3, 2, 16), (2, 2, 16)]
+    while r.step():
+        pass
+    r.finalise()
+    one = PluginRunner(standard_chain(16, 5, 2, device="cpu"),
+                       CudaTransport("cpu"))
+    np.testing.assert_allclose(r.transport.read(r.datasets["recon"]),
+                               one.transport.read(one.run()["recon"]),
+                               **TOL)
+
+
+UNEVEN = dict(CHAIN, n_angles=61)
+
+
+@pytest.fixture(scope="module")
+def uneven_scan():
+    return JT.simulate_raw_scan(
+        JT.phantom_stack(UNEVEN["n_det"], UNEVEN["n_rows"]),
+        JT.ParallelGeometry(UNEVEN["n_angles"], UNEVEN["n_det"],
+                            UNEVEN["n_rows"]))
+
+
+@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
+def test_uneven_split_over_four_slots(uneven_scan, fuse):
+    """61 angles over 4 slots: the projections split 16/15/15/15 (the
+    first slot takes the one left over); the volume equals one slot's
+    run and the reference's one-device run within the chain's bound."""
+    mesh = jax.make_mesh((1,), ("data",),
+                         axis_types=(jax.sharding.AxisType.Auto,))
+    ref = R.PluginRunner(_with_scan(JT.standard_chain(**UNEVEN),
+                                    uneven_scan), R.ShardedTransport(mesh),
+                         fuse=fuse)
+    want = np.asarray(ref.run()["recon"].materialise())
+    one, _ = _recon(CudaTransport("cpu"), uneven_scan, **UNEVEN)
+    tr = _slots(4)
+    r = PluginRunner(_with_scan(standard_chain(**UNEVEN, device="cpu"),
+                                uneven_scan), tr, fuse=fuse)
+    raw = tr.device_put(r.prepare().datasets["tomo"])
+    assert [t.shape[0] for t in raw.shards] == [16, 15, 15, 15]
+    got = tr.read(r.run()["recon"])
+    np.testing.assert_allclose(got, one, **TOL)
+    np.testing.assert_allclose(got, want, **TOL)
+    assert tr.stats()["alltoalls"] == 1
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -513,8 +561,22 @@ def test_sharded_tensor_regions_and_placement(rng):
         st.write_region(axis, lo, hi, -a[idx])
         a[idx] = -a[idx]
         np.testing.assert_array_equal(np.asarray(st), a)
-    with pytest.raises(ValueError, match="does not split over 3 slots"):
-        _slots(3).device_put(ds)
+    # 4 rows over 3 slots: blocks of 2, 1 and 1, read and written across
+    # their unequal bounds
+    st = _slots(3).device_put(ds)
+    assert [tuple(s.shape) for s in st.shards] == \
+        [(6, 2, 3), (6, 1, 3), (6, 1, 3)]
+    np.testing.assert_array_equal(st.numpy(), a)
+    for axis, lo, hi in ((1, 1, 4), (1, 2, 3), (0, 1, 4)):
+        idx = tuple(slice(lo, hi) if d == axis else slice(None)
+                    for d in range(3))
+        np.testing.assert_array_equal(st.read_region(axis, lo, hi).numpy(),
+                                      a[idx])
+        st.write_region(axis, lo, hi, a[idx] * 2)
+        a[idx] = a[idx] * 2
+        np.testing.assert_array_equal(np.asarray(st), a)
+    with pytest.raises(ValueError, match="does not split over 5 slots"):
+        _slots(5).device_put(ds)
 
 
 def test_sweep_over_http_on_slots_streams_each_slot_block():

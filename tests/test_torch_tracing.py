@@ -1,7 +1,8 @@
 """The program's spans of the runner and the transport, on CPU devices:
 ``runner.prepare`` around a runner's set-up, ``transport.to_device``
 around each hand-off of host data to the transport's device,
-``transport.to_host`` around each read of a device-resident dataset;
+``transport.to_host`` around each read of a device-resident dataset,
+``transport.alltoall`` around each re-split between slots;
 each on the epoch clock, on the trace of the request that owns the
 dataset (each member's own inside a gang); and the ``compile`` spans of
 a step built inside a closed loop or a gang step, which reach a
@@ -131,6 +132,34 @@ def test_sharded_read_is_one_gather_span_with_its_slots():
     raw = [ds for ds in runner.lineage if not ds.produced_by][0]
     assert dev.attrs["slots"] == 4 and dev.attrs["bytes"] == raw.nbytes
     assert t0 <= dev.start <= host.end <= t1
+
+
+@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
+def test_the_all_to_all_is_one_span_on_the_requests_trace(fuse):
+    """13 angles over 4 slots (4/3/3/3), projections to sinograms: one
+    ``transport.alltoall`` span on the request's trace, inside the ring
+    removal's step (or the fused step), carrying the bytes that crossed
+    between slots: every entry of the corrected stack but the blocks a
+    slot keeps for itself."""
+    transport = ShardedTransport(("cpu",) * 4)
+    t0 = time.time()
+    runner = PluginRunner(standard_chain(**{**CHAIN, "n_angles": 13}),
+                          transport, fuse=fuse)
+    runner.run()
+    tr = runner.profiler.trace
+    (a2a,) = _named(tr, "transport.alltoall")
+    # slot i holds angles a_i of every row; slot j takes rows j of them
+    kept = sum(a * 1 * CHAIN["n_det"] * 4 for a in (4, 3, 3, 3))
+    stack = 13 * CHAIN["n_rows"] * CHAIN["n_det"] * 4
+    assert a2a.attrs == {"bytes": stack - kept, "dataset": "tomo",
+                         "slots": 4, "from_dim": 0, "to_dim": 1}
+    assert transport.stats()["alltoall_bytes"] == stack - kept
+    (step,) = [s for s in tr.spans() if s.name.endswith(".process")
+               and s.start <= a2a.start and a2a.end <= s.end]
+    assert step.name == ("plugin.dark_flat_correction+ring_removal+"
+                         "sinogram_filter+fbp_recon.process" if fuse
+                         else "plugin.ring_removal.process")
+    assert t0 <= a2a.start <= a2a.end <= time.time()
 
 
 def test_a_shared_compile_cache_builds_on_the_first_request_only():
