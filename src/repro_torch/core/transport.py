@@ -24,15 +24,18 @@ computes on torch devices, ``"cuda"`` unless the caller passes
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
+import math
 import os
 import shutil
 import tempfile
 import time
 import weakref
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Sequence
 
 import numpy as np
@@ -181,6 +184,141 @@ def _read_off_card(ds: DataSet, b: torch.Tensor) -> np.ndarray:
                          == before["num_host_alloc"])
             dst.copy_(b.detach())
             out = dst.numpy()
+        attrs["bytes"] = out.nbytes
+    return out
+
+
+#: bytes of each page-locked staging block of a gather off the slots
+#: (:func:`_gather_off_cards`): a power of two, so torch's caching host
+#: allocator takes no more than asked
+STAGE_BYTES = 256 << 20
+
+
+def stage_rows(shape: Sequence[int], itemsize: int) -> int:
+    """How many whole leading rows of a block of ``shape`` one staging
+    block of :data:`STAGE_BYTES` holds, at most the block's own; 0 where
+    the block does not stage (no leading dim, no bytes, or one row
+    larger than a staging block)."""
+    if not shape:
+        return 0
+    row = itemsize * math.prod(shape[1:])
+    return 0 if row == 0 else min(shape[0], STAGE_BYTES // row)
+
+
+def stage_chunks(n: int, rows: int) -> list[tuple[int, int]]:
+    """Each chunk's [lo, hi) of ``n`` leading rows taken ``rows`` at a
+    time: whole chunks, then what is left."""
+    return [(lo, min(lo + rows, n)) for lo in range(0, n, rows)]
+
+
+def _stage_blocks(blocks: Sequence[torch.Tensor]
+                  ) -> tuple[list[list[torch.Tensor]], bool] | None:
+    """Each slot block's page-locked staging blocks, :func:`stage_rows`
+    leading rows each (two, or one for a block of one chunk), from
+    torch's caching host allocator, and whether the allocator had all
+    of them cached.  None where a block does not stage, :func:`pin_fits`
+    refuses them, or the page-locked allocation fails."""
+    shapes = []
+    for b in blocks:
+        rows = stage_rows(b.shape, b.element_size())
+        if rows == 0:
+            return None
+        shapes.append([(rows, *b.shape[1:])]
+                      * (2 if b.shape[0] > rows else 1))
+    nbytes = sum(pinned_block_bytes(math.prod(s) * b.element_size())
+                 for b, ss in zip(blocks, shapes) for s in ss)
+    before = torch.cuda.host_memory_stats()
+    phys = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    if not pin_fits(before["allocated_bytes.current"], nbytes, phys):
+        return None
+    try:
+        stages = [[torch.empty(s, dtype=b.dtype, pin_memory=True)
+                   for s in ss] for b, ss in zip(blocks, shapes)]
+    except RuntimeError:            # no page-locked memory to be had
+        return None
+    after = torch.cuda.host_memory_stats()
+    return stages, after["num_host_alloc"] == before["num_host_alloc"]
+
+
+def _side_stream(device: torch.device):
+    """A new stream of CUDA ``device`` that first waits on the calling
+    thread's current stream there, where ``device``'s data was made
+    (None for the host)."""
+    if device.type != "cuda":
+        return None
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    return stream
+
+
+def _drain(block: torch.Tensor, dst: torch.Tensor,
+           stages: Sequence[torch.Tensor], stream) -> int:
+    """Copy ``block`` into ``dst`` (a host view of its shape) chunk by
+    chunk through ``stages``: while this thread copies chunk i out of
+    one staging block, the card copies chunk i + 1 into the other on
+    ``stream`` (None: a block in host memory, copied at once).  Returns
+    the chunks."""
+    chunks = stage_chunks(block.shape[0], stages[0].shape[0])
+    pending = collections.deque()
+
+    def launch(i):
+        lo, hi = chunks[i]
+        stage = stages[i % len(stages)][:hi - lo]
+        done = None
+        if stream is None:
+            stage.copy_(block[lo:hi])
+        else:
+            with torch.cuda.stream(stream):
+                stage.copy_(block[lo:hi], non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+        pending.append((stage, done))
+
+    for i in range(min(len(stages), len(chunks))):
+        launch(i)
+    for i, (lo, hi) in enumerate(chunks):
+        stage, done = pending.popleft()
+        if done is not None:
+            done.synchronize()
+        dst[lo:hi].copy_(stage)
+        if i + len(stages) < len(chunks):
+            launch(i + len(stages))     # into the block just emptied
+    return len(chunks)
+
+
+def _gather_off_cards(ds: DataSet, st: ShardedTensor) -> np.ndarray:
+    """``st`` (``ds``'s backing on the slots) in host memory, as one
+    ``transport.to_host`` span.  The destination is one fresh host
+    array, and each slot block is written into its own view of it.
+    Every slot is read at once, by a thread of its own, through its
+    own page-locked staging blocks (:func:`_stage_blocks`), which the
+    caching host allocator keeps for the next gather: the card fills
+    one while the thread empties the other, so the slots share the
+    first touch of the destination's pages.  The span's ``pinned``
+    says whether it staged, ``reused`` whether every staging block came
+    from the allocator's cache, ``chunks`` the chunks staged.  The
+    pageable gather (:meth:`ShardedTensor.numpy`) where the blocks do
+    not stage."""
+    blocks = st.blocks()
+    with _copy_span("transport.to_host", ds, dataset=ds.name,
+                    device=_devices_of(st.devices), slots=len(st.devices),
+                    pinned=False, reused=False, chunks=0) as attrs:
+        staged = _stage_blocks(blocks)
+        if staged is None:
+            out = st.numpy()
+        else:
+            stages, reused = staged
+            whole = torch.empty(st.shape, dtype=st.dtype)
+            dsts = ([whole] if st.dim is None else
+                    [whole.narrow(st.dim, lo, hi - lo)
+                     for lo, hi in st._spans()])
+            streams = [_side_stream(b.device) for b in blocks]
+            with ThreadPoolExecutor(len(blocks)) as pool:
+                futures = [pool.submit(_drain, *a)
+                           for a in zip(blocks, dsts, stages, streams)]
+                chunks = sum(f.result() for f in futures)
+            out = whole.numpy()
+            attrs.update(pinned=True, reused=reused, chunks=chunks)
         attrs["bytes"] = out.nbytes
     return out
 
@@ -719,13 +857,17 @@ class CudaTransport(Transport):
         """``ds`` in host memory; a copy off the device (or off every
         slot, as one gather) is a ``transport.to_host`` span.  Off a
         card the destination is a recycled page-locked block
-        (:func:`_read_off_card`)."""
+        (:func:`_read_off_card`); off the slots' cards the slots are
+        read at once through recycled page-locked staging blocks
+        (:func:`_gather_off_cards`)."""
         b = ds.materialise()
         if isinstance(b, torch.Tensor):
             if b.device.type == "cuda":
                 return _read_off_card(ds, b)
             where = {"device": str(b.device)}
         elif isinstance(b, ShardedTensor):
+            if all(t.device.type == "cuda" for t in b.blocks()):
+                return _gather_off_cards(ds, b)
             where = {"device": _devices_of(b.devices),
                      "slots": len(b.devices)}
         else:

@@ -15,7 +15,11 @@ deals frames, the first slots one entry more, and agrees with one slot
 and with the reference's one-device run.  Then the port's
 counterparts, on 2 slots, of the reference's tests that build a ``ShardedTransport``
 (tests/test_framework.py, test_checkpoint.py, test_sweep.py,
-test_service.py), and a streamed run equal to the batch run.
+test_service.py), and a streamed run equal to the batch run.  Last, the
+gather through page-locked staging blocks (``_gather_off_cards``) on
+CPU blocks with its page-locked allocations stubbed: its chunk
+arithmetic, the gather bit for bit the pageable one, and the pageable
+fallback (the staged path on the cards: test_torch_staged_gather.py).
 """
 import json
 import os
@@ -25,6 +29,7 @@ import textwrap
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -687,3 +692,160 @@ def test_slots_are_never_remapped():
     with pytest.raises(ValueError, match="'all' or a sequence"):
         ShardedTransport("cpu")
     assert _slots(3).stats()["slots"] == ["cpu"] * 3
+
+
+# -- the gather through page-locked staging blocks (_gather_off_cards) --
+MiB = 1 << 20
+
+
+@pytest.mark.parametrize("shape, itemsize, rows, chunks", [
+    # a 540-slice block of 2560² float32 slices: 10 slices a chunk
+    ((540, 2560, 2560), 4, 10, 54),
+    # 451 slices: 45 whole chunks and a last one of 1
+    ((451, 2560, 2560), 4, 10, 46),
+    # a block smaller than one chunk is one chunk of its own rows
+    ((3, 2560, 2560), 4, 3, 1),
+    # a row of exactly one staging block
+    ((2, 8192, 8192), 4, 1, 2),
+    ((100, 7), 2, 100, 1),
+], ids=["even", "last_partial", "under_one_chunk", "row_is_a_block",
+        "tiny"])
+def test_stage_chunk_arithmetic(shape, itemsize, rows, chunks):
+    from repro_torch.core import transport
+    assert transport.STAGE_BYTES == 256 * MiB
+    assert transport.stage_rows(shape, itemsize) == rows
+    got = transport.stage_chunks(shape[0], rows)
+    assert len(got) == chunks
+    assert got[0][0] == 0 and got[-1][1] == shape[0]
+    assert all(hi - lo == rows for lo, hi in got[:-1])
+    assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+    assert 0 < got[-1][1] - got[-1][0] <= rows
+    assert rows * itemsize * int(np.prod(shape[1:])) <= transport.STAGE_BYTES
+
+
+@pytest.mark.parametrize("shape, itemsize", [
+    ((1, 8192, 8193), 4), ((0, 5), 4), ((5, 0), 4), ((), 4)],
+    ids=["row_over_a_block", "no_rows", "empty_rows", "scalar"])
+def test_blocks_that_do_not_stage(shape, itemsize):
+    from repro_torch.core import transport
+    assert transport.stage_rows(shape, itemsize) == 0
+
+
+def _staged(monkeypatch, stage_bytes, fits=True, pin_raises=False,
+            cached=False):
+    """Run ``_gather_off_cards`` on CPU blocks: page-locked allocations
+    are plain host tensors (recorded), the allocator's counters stubbed
+    (``cached``: no allocation counts as new), ``pin_fits`` answering
+    ``fits``, a ``pin_raises`` allocation raising as on a host with no
+    page-locked memory left.  Returns the list of staging shapes taken."""
+    from repro_torch.core import transport
+    empty, taken = torch.empty, []
+    count = {"n": 0}
+
+    def pinned(*args, pin_memory=False, **kwargs):
+        if pin_memory:
+            if pin_raises:
+                raise RuntimeError("no page-locked memory")
+            taken.append(tuple(args[0]))
+            count["n"] += 0 if cached else 1
+        return empty(*args, **kwargs)
+
+    monkeypatch.setattr(transport, "STAGE_BYTES", stage_bytes)
+    monkeypatch.setattr(torch.cuda, "host_memory_stats", lambda: {
+        "allocated_bytes.current": 0, "num_host_alloc": count["n"]})
+    monkeypatch.setattr(transport, "pin_fits", lambda *a: fits)
+    monkeypatch.setattr(torch, "empty", pinned)
+    return taken
+
+
+def _sharded(a, dim, k):
+    """``a`` (numpy) as a ShardedTensor over ``k`` CPU slots, split along
+    ``dim`` as the transport splits (None: ``k`` replicas)."""
+    from repro_torch.core.transport import split_sizes
+    t = torch.from_numpy(a)
+    if dim is None:
+        shards = [t.clone() for _ in range(k)]
+    else:
+        shards = [s.contiguous() for s in
+                  torch.split(t, split_sizes(a.shape[dim], k), dim)]
+    return ShardedTensor(shards, dim, [torch.device("cpu")] * k)
+
+
+# (shape, dtype, dim, slots, stage bytes): the chunks follow each block's
+# leading dim, the destination views follow ``dim``
+GATHERS = {
+    "even": ((8, 3, 5), np.float32, 0, 4, 64),
+    "uneven_451_450_450_450": ((1801, 3, 4), np.uint16, 0, 4, 512),
+    "split_dim_1": ((7, 10, 3), np.float32, 1, 4, 40),
+    "split_dim_2": ((5, 2, 9), np.float64, 2, 3, 50),
+    "replicated": ((6, 4, 3), np.float32, None, 4, 100),
+    "one_chunk_a_slot": ((8, 3, 5), np.float32, 0, 2, 4096),
+    "eight_slots_one_device": ((29, 3, 2), np.int32, 0, 8, 24),
+}
+
+
+@pytest.mark.parametrize("case", GATHERS)
+def test_staged_gather_equals_the_pageable_gather(monkeypatch, rng, case):
+    from repro_torch.core import transport
+    from repro_torch.obs import Trace
+    shape, dtype, dim, k, stage = GATHERS[case]
+    a = (rng.normal(size=shape) * 1000).astype(dtype)
+    st = _sharded(a, dim, k)
+    want = st.to("cpu").numpy()
+    taken = _staged(monkeypatch, stage)
+    ds = DataSet("recon", shape, dtype, ("z", "y", "x"), backing=st,
+                 trace=Trace())
+    got = transport._gather_off_cards(ds, st)
+    assert got.dtype == want.dtype and got.shape == want.shape == shape
+    assert got.tobytes() == want.tobytes() == a.tobytes()
+    assert got.flags.c_contiguous and got.flags.writeable
+    blocks = st.blocks()
+    rows = [transport.stage_rows(b.shape, b.element_size()) for b in blocks]
+    chunks = [len(transport.stage_chunks(b.shape[0], r))
+              for b, r in zip(blocks, rows)]
+    # one staging block for a block of one chunk, two for more, each of
+    # the block's chunk rows and at most a staging block's bytes
+    assert taken == [(r, *b.shape[1:]) for b, r, c in zip(blocks, rows, chunks)
+                     for _ in range(min(2, c))]
+    assert all(np.prod(s) * a.itemsize <= stage for s in taken)
+    (span,) = ds.trace.spans()
+    assert span.name == "transport.to_host"
+    assert span.attrs == {"bytes": a.nbytes, "dataset": "recon",
+                          "device": "cpu", "slots": k, "pinned": True,
+                          "reused": False, "chunks": sum(chunks)}
+
+
+def test_a_gather_whose_staging_blocks_were_cached_says_reused(monkeypatch,
+                                                              rng):
+    from repro_torch.core import transport
+    from repro_torch.obs import Trace
+    a = rng.normal(size=(9, 4, 2)).astype(np.float32)
+    st = _sharded(a, 0, 3)
+    _staged(monkeypatch, 32, cached=True)
+    ds = DataSet("recon", a.shape, a.dtype, ("z", "y", "x"), backing=st,
+                 trace=Trace())
+    np.testing.assert_array_equal(transport._gather_off_cards(ds, st), a)
+    (span,) = ds.trace.spans()
+    assert span.attrs["pinned"] is True and span.attrs["reused"] is True
+    assert span.attrs["chunks"] == 3 * 3
+
+
+@pytest.mark.parametrize("fits, pin_raises, stage", [
+    (False, False, 64), (True, True, 64), (True, False, 16)],
+    ids=["cap_refuses", "allocation_raises", "row_over_a_block"])
+def test_a_gather_that_cannot_stage_is_the_pageable_gather(
+        monkeypatch, rng, fits, pin_raises, stage):
+    from repro_torch.core import transport
+    from repro_torch.obs import Trace
+    a = rng.normal(size=(13, 2, 3)).astype(np.float32)   # a row: 24 B
+    st = _sharded(a, 0, 4)
+    taken = _staged(monkeypatch, stage, fits=fits, pin_raises=pin_raises)
+    ds = DataSet("recon", a.shape, a.dtype, ("z", "y", "x"), backing=st,
+                 trace=Trace())
+    got = transport._gather_off_cards(ds, st)
+    assert got.tobytes() == a.tobytes()
+    assert taken == []
+    (span,) = ds.trace.spans()
+    assert span.attrs == {"bytes": a.nbytes, "dataset": "recon",
+                          "device": "cpu", "slots": 4, "pinned": False,
+                          "reused": False, "chunks": 0}
