@@ -213,13 +213,13 @@ Phases, each fatal on failure:
     4 and 8 slots divide 1800), seed 0, on ``CudaTransport`` as the
     one-card reference, then on ``ShardedTransport`` over 4 slots of
     the card and, on a host with two or more cards, over every card,
-    fused and unfused, each slot set run once untimed first; each
+    each slot set run once untimed first; each
     reconstruction held against the one-card run (rtol 1e-3, atol
     1e-4) with its max abs difference, and where that is not 0 each
     step's difference, carried and its own (fed the one-card run's
     input); the kernels' counts are set to 0 just before each run and
     must read one launch of each kernel per slot (per step, from the
-    spans, unfused); the all-to-all must move (n − 1)/n of the fp32
+    spans); the all-to-all must move (n − 1)/n of the fp32
     corrected stack; the ring removal's step, whose input is re-split,
     runs under ``torch.profiler`` and must copy nothing through the host
     (memcpy and ``torch.cat`` kernels recorded); then a gang of the
@@ -1953,8 +1953,8 @@ def dryrun_phase(smi: str) -> dict:
 def sharded_phase(dev, smi: str, compare) -> dict:
     """11: ``standard_chain`` at ``SHARDED`` on one card, then on
     ``ShardedTransport`` over ``SHARDED_SLOTS`` slots of the card and
-    over every card when there are two or more, fused and unfused, each
-    held against the one-card run; the all-to-all's copies under the
+    over every card when there are two or more, each held against the
+    one-card run; the all-to-all's copies under the
     profiler; a gang of ``SHARDED_GANG`` through ``PipelineScheduler`` on
     the slots against each member's one-card run.  Returns the phase's
     numbers; fails on any check."""
@@ -1989,13 +1989,13 @@ def sharded_phase(dev, smi: str, compare) -> dict:
         pl.entries[0].params["scan"] = scan
         return pl
 
-    def run(pl, transport, fuse=False):
+    def run(pl, transport):
         """One run with every kernel's count set to 0 just before."""
         for w in wrappers.values():
             w.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = PluginRunner(pl, transport, fuse=fuse)
+        r = PluginRunner(pl, transport)
         r.run()
         wall = time.perf_counter() - t0
         return r, wall, {k: w.launches for k, w in wrappers.items()}
@@ -2017,10 +2017,9 @@ def sharded_phase(dev, smi: str, compare) -> dict:
             return to_tensor(p.out_data[0].dataset.materialise(), dev)
 
         while True:
-            groups = [r.begin_step() for r in (one_r, sl_r, iso_r)]
-            if groups[0] is None:
+            p1, p2, p3 = [r.begin_step() for r in (one_r, sl_r, iso_r)]
+            if p1 is None:
                 break
-            (p1,), (p2,), (p3,) = groups
             p3.in_data[0].dataset.backing = to_tensor(
                 p1.in_data[0].dataset.materialise(), dev).clone()
             for tr, p in ((one_tr, p1), (sl_tr, p2), (iso_tr, p3)):
@@ -2048,47 +2047,43 @@ def sharded_phase(dev, smi: str, compare) -> dict:
     runs = []
     for label, devices in slot_sets.items():
         run(chain(scan), ShardedTransport(devices))
-        for fuse in (False, True):
-            tr = ShardedTransport(devices)
-            n = len(tr.slots)
-            r, wall, launches = run(chain(scan), tr, fuse)
-            name = f"sharded chain ({label}, {'fused' if fuse else 'unfused'})"
-            if launches != {k: n for k in wrappers}:
-                fail(f"{name}: launches {launches}, expected {n} of each "
-                     f"(one per slot)")
-            st = tr.stats()
-            if (st["alltoalls"], st["alltoall_bytes"]) != (
-                    1, stack_bytes * (n - 1) // n):
-                fail(f"{name}: all-to-alls {st['alltoalls']} of "
-                     f"{st['alltoall_bytes']} B, expected 1 of "
-                     f"{stack_bytes * (n - 1) // n}")
-            recon = r.datasets["recon"].backing
-            err = compare(f"{name} vs one card", recon.to(dev), ref,
-                          1e-3, 1e-4)
-            rec = {"slots": st["slots"], "fused": fuse, "wall_s": wall,
-                   "process_s": r.profiler.totals("process"),
-                   "max_abs_diff_vs_one_card": err, "launches": launches,
-                   "alltoall_bytes": st["alltoall_bytes"],
-                   "alltoall_s": st["alltoall_s"]}
-            if not fuse:
-                per_step = {e.plugin: {k.split(".", 1)[1]: v
-                                       for k, v in e.extra.items()
-                                       if k.startswith("launches.")}
-                            for e in r.profiler.events
-                            if e.phase == "process"}
-                want = {"dark_flat_correction": {"correction": n},
-                        "ring_removal": {},
-                        "sinogram_filter": {"spectrum_scale": n},
-                        "fbp_recon": {"backprojection": n}}
-                if per_step != want:
-                    fail(f"{name}: launches per step {per_step}, "
-                         f"expected {want}")
-                rec["launches_per_step"] = per_step
-            if err != 0.0 and not fuse:
-                rec["step_diffs"] = step_diffs(devices)
-            runs.append(rec)
-            del r, recon
-            torch.cuda.empty_cache()
+        tr = ShardedTransport(devices)
+        n = len(tr.slots)
+        r, wall, launches = run(chain(scan), tr)
+        name = f"sharded chain ({label})"
+        if launches != {k: n for k in wrappers}:
+            fail(f"{name}: launches {launches}, expected {n} of each "
+                 f"(one per slot)")
+        st = tr.stats()
+        if (st["alltoalls"], st["alltoall_bytes"]) != (
+                1, stack_bytes * (n - 1) // n):
+            fail(f"{name}: all-to-alls {st['alltoalls']} of "
+                 f"{st['alltoall_bytes']} B, expected 1 of "
+                 f"{stack_bytes * (n - 1) // n}")
+        recon = r.datasets["recon"].backing
+        err = compare(f"{name} vs one card", recon.to(dev), ref,
+                      1e-3, 1e-4)
+        per_step = {e.plugin: {k.split(".", 1)[1]: v
+                               for k, v in e.extra.items()
+                               if k.startswith("launches.")}
+                    for e in r.profiler.events if e.phase == "process"}
+        want = {"dark_flat_correction": {"correction": n},
+                "ring_removal": {},
+                "sinogram_filter": {"spectrum_scale": n},
+                "fbp_recon": {"backprojection": n}}
+        if per_step != want:
+            fail(f"{name}: launches per step {per_step}, expected {want}")
+        rec = {"slots": st["slots"], "wall_s": wall,
+               "process_s": r.profiler.totals("process"),
+               "max_abs_diff_vs_one_card": err, "launches": launches,
+               "launches_per_step": per_step,
+               "alltoall_bytes": st["alltoall_bytes"],
+               "alltoall_s": st["alltoall_s"]}
+        if err != 0.0:
+            rec["step_diffs"] = step_diffs(devices)
+        runs.append(rec)
+        del r, recon
+        torch.cuda.empty_cache()
 
     # the all-to-all's copies: the ring removal's step, whose input is
     # re-split first, under the profiler; nothing may cross the host

@@ -13,12 +13,12 @@ Phases:
   4. **finalise** — savers persist surviving datasets; a NeXus-style JSON
      manifest links every intermediate file (paper §III.A).
 
-Fusion (beyond paper): consecutive 1-in/1-out plugins that share a
-driver run as one step on a :class:`CudaTransport` or a
-:class:`ShardedTransport`, so intermediates stay on the device (on the
-slots, re-split between members where the patterns change).  Every
-timer records ``devices``, the transport's slot count (1 but on a
-:class:`ShardedTransport`), as the reference records its mesh size.
+A step is one processor plugin.  :func:`step_together` runs the next
+step of one runner, or of a gang of runners that share a transport (one
+``run_plugin_batch`` call where the transport gangs); it is the only
+place a batch step runs.  Every timer records ``devices``, the
+transport's slot count (1 but on a :class:`ShardedTransport`), as the
+reference records its mesh size.
 
 Streaming (arrival-driven) execution: :meth:`PluginRunner.enable_streaming`
 opens the runner against a growing loader dataset that
@@ -38,7 +38,7 @@ import functools
 import json
 import os
 import time
-from typing import Any
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -49,8 +49,9 @@ from .dataset import DataSet
 from .plugin import BaseLoader, BasePlugin, BaseSaver, PluginData
 from .process_list import ProcessList
 from .profiler import Profiler
-from .transport import (ChunkedFile, CudaTransport, ShardedTensor,
-                        Transport, to_numpy, to_tensor, torch_dtype)
+from .transport import (ChunkedFile, CudaTransport, GangSignatureMismatch,
+                        ShardedTensor, Transport, to_numpy, to_tensor,
+                        torch_dtype)
 
 
 class _StreamState:
@@ -67,10 +68,9 @@ class _StreamState:
       slab in one call on the transport's device (bit-identical to the
       batch step because each frame is processed independently).
     * ``barrier`` — the arrival axis is a core dim of some input (e.g.
-      sinogram-space plugins need all angles), the group is fused, or
-      the plugin consumes no streaming data: it runs exactly once, via
-      the normal transport path, when all its streaming inputs are
-      complete.
+      sinogram-space plugins need all angles) or the plugin consumes no
+      streaming data: it runs exactly once, via the normal transport
+      path, when all its streaming inputs are complete.
     """
 
     def __init__(self, dataset: DataSet, axis_index: int, axis_label: str):
@@ -80,12 +80,12 @@ class _StreamState:
         self.total = dataset.shape[axis_index]
         self.ingested = 0
         self.eof = False
-        #: (group, plugin_idx) -> "window" | "barrier"
-        self.kind: dict[tuple[int, int], str] = {}
-        #: (group, plugin_idx) -> frames consumed (window plugins only)
-        self.cursors: dict[tuple[int, int], int] = {}
-        #: window plugins whose pre_process already ran
-        self.begun: set[tuple[int, int]] = set()
+        #: step -> "window" | "barrier"
+        self.kind: dict[int, str] = {}
+        #: step -> frames consumed (window steps only)
+        self.cursors: dict[int, int] = {}
+        #: window steps whose pre_process already ran
+        self.begun: set[int] = set()
         #: id(dataset) -> arrival-axis index, for every streaming dataset
         self.axes: dict[int, int] = {}
 
@@ -111,14 +111,11 @@ class PluginRunner:
     def __init__(self, process_list: ProcessList,
                  transport: Transport | None = None,
                  profiler: Profiler | None = None,
-                 fuse: bool = False,
                  output_dir: str | None = None):
         self.process_list = process_list
         self.transport = transport if transport is not None \
             else CudaTransport("cuda")
         self.profiler = profiler or Profiler()
-        # a ShardedTransport is a CudaTransport: both fuse
-        self.fuse = fuse and isinstance(self.transport, CudaTransport)
         #: the slots each step runs on, recorded on every timer
         self.devices = len(getattr(self.transport, "slots", (None,)))
         self.output_dir = output_dir
@@ -127,7 +124,8 @@ class PluginRunner:
         #: every dataset ever produced (for the NeXus-style manifest)
         self.lineage: list[DataSet] = []
         self._prepared = False
-        self._groups: list[list[BasePlugin]] = []
+        #: the processor plugins, one step each
+        self._processors: list[BasePlugin] = []
         self._step_i = 0
         self._in_step = False
         #: arrival-driven execution state (enable_streaming); None = batch
@@ -162,9 +160,6 @@ class PluginRunner:
             self._loaders, self._processors, self._savers = self._split()
             self._setup_phase(self._loaders, self._processors,
                               self._savers)
-            self._groups = (self._fusion_groups(self._processors)
-                            if self.fuse
-                            else [[p] for p in self._processors])
             self._compute_liveness()
         self._step_i = 0
         self._prepared = True
@@ -172,14 +167,14 @@ class PluginRunner:
 
     @property
     def n_steps(self) -> int:
-        return len(self._groups)
+        return len(self._processors)
 
     @property
     def current_step(self) -> int:
         return self._step_i
 
     def step_labels(self) -> list[str]:
-        return ["+".join(p.name for p in g) for g in self._groups]
+        return [p.name for p in self._processors]
 
     def result_names(self) -> list[str]:
         """Names of the datasets consumed by savers, in saver order.
@@ -203,15 +198,14 @@ class PluginRunner:
         #: (consume_step, producer_step, dataset name) per use — producer
         #: is -1 for loader-created datasets
         uses: list[tuple[int, int, str]] = []
-        for g, group in enumerate(self._groups):
-            for p in group:
-                for pd in p.in_data:
-                    ds = pd.dataset
-                    last_use[id(ds)] = g
-                    uses.append((g, producer.get(id(ds), -1), ds.name))
-                for pd in p.out_data:
-                    producer[id(pd.dataset)] = g
-        n = len(self._groups)
+        for g, p in enumerate(self._processors):
+            for pd in p.in_data:
+                ds = pd.dataset
+                last_use[id(ds)] = g
+                uses.append((g, producer.get(id(ds), -1), ds.name))
+            for pd in p.out_data:
+                producer[id(pd.dataset)] = g
+        n = len(self._processors)
         for sv in self._savers:
             for name in sv.in_dataset_names:
                 ds = self._final.get(name)
@@ -228,93 +222,69 @@ class PluginRunner:
         count as consuming at ``n_steps``) but produced BEFORE ``step``.
 
         While a stream is mid-flight the step cursor is pinned at the
-        first incomplete group, so this set always holds the growing
+        first incomplete step, so this set always holds the growing
         root dataset; windowed plugins ahead of the cursor do not pin
         their partial outputs, because a restore resets their cursors to
         0 and recomputes them from the restored prefix."""
         return {name for g, prod, name in self._uses
                 if g >= step and prod < step}
 
-    def begin_step(self) -> list[BasePlugin] | None:
-        """Rebind the next group's in_data to the live dataset registry
-        and run pre_process.  Returns the group, or None when exhausted.
-        The caller executes the group and then calls
+    def begin_step(self) -> BasePlugin | None:
+        """Rebind the next plugin's in_data to the live dataset registry
+        and run pre_process.  Returns the plugin, or None when exhausted.
+        The caller executes the plugin and then calls
         :meth:`complete_step`."""
         if not self._prepared:
             self.prepare()
         if self._in_step:
             raise RuntimeError("begin_step called twice without "
                                "complete_step")
-        if self._step_i >= len(self._groups):
+        if self._step_i >= len(self._processors):
             return None
-        group = self._groups[self._step_i]
-        for p in group:
-            for pd in p.in_data:
-                if pd.dataset.name in self.datasets:
-                    pd.dataset = self.datasets[pd.dataset.name]
-                # the step may drop the input only if no later step (or
-                # saver) reads this dataset version
-                lu = self._last_use.get(id(pd.dataset))
-                pd.last_use = lu is not None and lu <= self._step_i
-            with self.profiler.timer(p.name, "pre", self.devices):
-                p.pre_process()
+        p = self._processors[self._step_i]
+        for pd in p.in_data:
+            if pd.dataset.name in self.datasets:
+                pd.dataset = self.datasets[pd.dataset.name]
+            # the step may drop the input only if no later step (or
+            # saver) reads this dataset version
+            lu = self._last_use.get(id(pd.dataset))
+            pd.last_use = lu is not None and lu <= self._step_i
+        with self.profiler.timer(p.name, "pre", self.devices):
+            p.pre_process()
         self._in_step = True
-        return group
+        return p
 
     def complete_step(self) -> None:
-        """Post-process + replacement semantics for the group started by
+        """Post-process + replacement semantics for the plugin started by
         :meth:`begin_step`, then advance the step cursor."""
         if not self._in_step:
             raise RuntimeError("complete_step without begin_step")
-        for p in self._groups[self._step_i]:
-            with self.profiler.timer(p.name, "post", self.devices):
-                p.post_process()
-            self._replace(p)
+        p = self._processors[self._step_i]
+        with self.profiler.timer(p.name, "post", self.devices):
+            p.post_process()
+        self._replace(p)
         self._in_step = False
         self._step_i += 1
 
-    @_on_own_trace
     def step(self) -> bool:
-        """Run one plugin (or fused group).  Returns False when the chain
-        is exhausted."""
-        group = self.begin_step()
-        if group is None:
-            return False
-        if len(group) == 1:
-            p = group[0]
-            # cost analysis (when the transport offers it) runs BEFORE
-            # the timer, so its run never counts in the span it annotates
-            cost = (self.transport.plugin_cost(p)
-                    if hasattr(self.transport, "plugin_cost") else None)
-            with self.profiler.timer(p.name, "process", self.devices,
-                                     **(cost or {})) as timer, \
-                    tally() as launched:
-                self.transport.run_plugin(p)
-            timer.span.attrs.update(launched.launch_attrs())
-        else:
-            label = "+".join(p.name for p in group)
-            with self.profiler.timer(label, "process", self.devices,
-                                     fused=True) as timer, \
-                    tally() as launched:
-                self.transport.run_fused(group)
-            timer.span.attrs.update(launched.launch_attrs())
-        self.complete_step()
-        return True
+        """Run one plugin (:func:`step_together`).  Returns False when
+        the chain is exhausted."""
+        return step_together([self])
 
     def skip_to(self, step: int,
                 datasets: dict[str, Any] | None = None) -> None:
-        """Resume support: mark the first ``step`` groups as already done
+        """Resume support: mark the first ``step`` plugins as already done
         (replaying their replacement semantics WITHOUT executing them) and
         restore the surviving datasets' contents from ``datasets``
         (name -> host array, e.g. loaded from a checkpoint)."""
         self.prepare()
         if self._step_i != 0:
             raise RuntimeError("skip_to on a runner that already stepped")
-        if not 0 <= step <= len(self._groups):
-            raise ValueError(f"step {step} outside 0..{len(self._groups)}")
-        for group in self._groups[:step]:
-            for p in group:
-                self._replace(p)
+        if not 0 <= step <= len(self._processors):
+            raise ValueError(
+                f"step {step} outside 0..{len(self._processors)}")
+        for p in self._processors[:step]:
+            self._replace(p)
         self._step_i = step
         for name, arr in (datasets or {}).items():
             if name not in self.datasets:
@@ -327,9 +297,9 @@ class PluginRunner:
 
     @_on_own_trace
     def finalise(self) -> None:
-        if self._step_i < len(self._groups):
+        if self._step_i < len(self._processors):
             raise RuntimeError(
-                f"finalise at step {self._step_i}/{len(self._groups)}")
+                f"finalise at step {self._step_i}/{len(self._processors)}")
         if self._stream is not None and not self._stream.complete:
             raise RuntimeError(
                 f"finalise mid-stream at frame "
@@ -423,49 +393,47 @@ class PluginRunner:
         ds.stream_axis = axis
         st = _StreamState(ds, ai, axis)
         st.axes[id(ds)] = ai
-        for g, group in enumerate(self._groups):
-            for j, p in enumerate(group):
-                s_ins = [pd for pd in p.in_data
-                         if id(pd.dataset) in st.axes]
-                if not s_ins:
-                    st.kind[(g, j)] = "barrier"   # no stream dependency
-                    continue
-                windowed = len(group) == 1 and bool(p.out_data)
-                for pd in s_ins:
-                    a_in = st.axes[id(pd.dataset)]
-                    try:
-                        pat = pd.pattern
-                    except KeyError:
-                        pat = None
-                    if pat is None or a_in not in pat.slice_dims \
-                            or pd.n_frames != 1:
-                        windowed = False
-                out_axes = []
-                for pd in p.out_data:
-                    od = pd.dataset
-                    if axis not in od.axis_labels:
-                        windowed = False
-                        break
-                    oi = od.label_index(axis)
-                    try:
-                        opat = pd.dataset.get_pattern(pd.pattern_name)
-                    except KeyError:
-                        opat = None
-                    if od.shape[oi] != st.total or opat is None \
-                            or oi not in opat.slice_dims:
-                        windowed = False
-                        break
-                    out_axes.append((od, oi))
-                if windowed:
-                    st.kind[(g, j)] = "window"
-                    st.cursors[(g, j)] = 0
-                    for od, oi in out_axes:
-                        self._ensure_writable(od)
-                        od.available_extent = 0
-                        od.stream_axis = axis
-                        st.axes[id(od)] = oi
-                else:
-                    st.kind[(g, j)] = "barrier"
+        for g, p in enumerate(self._processors):
+            s_ins = [pd for pd in p.in_data if id(pd.dataset) in st.axes]
+            if not s_ins:
+                st.kind[g] = "barrier"   # no stream dependency
+                continue
+            windowed = bool(p.out_data)
+            for pd in s_ins:
+                a_in = st.axes[id(pd.dataset)]
+                try:
+                    pat = pd.pattern
+                except KeyError:
+                    pat = None
+                if pat is None or a_in not in pat.slice_dims \
+                        or pd.n_frames != 1:
+                    windowed = False
+            out_axes = []
+            for pd in p.out_data:
+                od = pd.dataset
+                if axis not in od.axis_labels:
+                    windowed = False
+                    break
+                oi = od.label_index(axis)
+                try:
+                    opat = pd.dataset.get_pattern(pd.pattern_name)
+                except KeyError:
+                    opat = None
+                if od.shape[oi] != st.total or opat is None \
+                        or oi not in opat.slice_dims:
+                    windowed = False
+                    break
+                out_axes.append((od, oi))
+            if windowed:
+                st.kind[g] = "window"
+                st.cursors[g] = 0
+                for od, oi in out_axes:
+                    self._ensure_writable(od)
+                    od.available_extent = 0
+                    od.stream_axis = axis
+                    st.axes[id(od)] = oi
+            else:
+                st.kind[g] = "barrier"
         self._stream = st
         return self
 
@@ -523,12 +491,12 @@ class PluginRunner:
     def pump(self) -> int:
         """Execute everything the arrived prefix allows: advance every
         runnable windowed plugin over its new slab (one call on the
-        device per slab), then complete groups in order (windows once
+        device per slab), then complete steps in order (windows once
         their cursor covers the full extent, barriers via the normal
         transport path once every streaming input is complete).  Steps
         therefore still complete IN ORDER — ``current_step`` keeps
         meaning "count of fully-completed steps" and checkpoints taken
-        mid-stream sit at the first incomplete group.  Returns the
+        mid-stream sit at the first incomplete step.  Returns the
         number of executions performed."""
         st = self._require_stream()
         if self._in_step:
@@ -539,58 +507,49 @@ class PluginRunner:
             moved = False
             # 1) windowed plugins run ahead of the step cursor over
             #    whatever new slab their streaming inputs expose
-            for g in range(self._step_i, len(self._groups)):
-                for j, p in enumerate(self._groups[g]):
-                    if st.kind[(g, j)] != "window":
-                        continue
-                    static_ready = all(
-                        self._producer_of.get(id(pd.dataset), -1)
-                        < self._step_i
-                        for pd in p.in_data
-                        if id(pd.dataset) not in st.axes)
-                    if not static_ready:
-                        continue
-                    lo = st.cursors[(g, j)]
-                    hi = min((pd.dataset.available_extent or 0)
-                             for pd in p.in_data
-                             if id(pd.dataset) in st.axes)
-                    if hi <= lo:
-                        continue
-                    if (g, j) not in st.begun:
-                        with self.profiler.timer(p.name, "pre",
-                                                 self.devices):
-                            p.pre_process()
-                        st.begun.add((g, j))
-                    with self.profiler.timer(p.name, "process",
-                                             self.devices, window=[lo, hi]):
-                        self._run_window(p, lo, hi)
-                    st.cursors[(g, j)] = hi
-                    for pd in p.out_data:
-                        pd.dataset.available_extent = hi
-                    moved = True
-                    progressed += 1
-            # 2) complete groups in order as they become fully done
-            while self._step_i < len(self._groups):
+            for g in range(self._step_i, len(self._processors)):
+                p = self._processors[g]
+                if st.kind[g] != "window":
+                    continue
+                static_ready = all(
+                    self._producer_of.get(id(pd.dataset), -1) < self._step_i
+                    for pd in p.in_data if id(pd.dataset) not in st.axes)
+                if not static_ready:
+                    continue
+                lo = st.cursors[g]
+                hi = min((pd.dataset.available_extent or 0)
+                         for pd in p.in_data if id(pd.dataset) in st.axes)
+                if hi <= lo:
+                    continue
+                if g not in st.begun:
+                    with self.profiler.timer(p.name, "pre", self.devices):
+                        p.pre_process()
+                    st.begun.add(g)
+                with self.profiler.timer(p.name, "process",
+                                         self.devices, window=[lo, hi]):
+                    self._run_window(p, lo, hi)
+                st.cursors[g] = hi
+                for pd in p.out_data:
+                    pd.dataset.available_extent = hi
+                moved = True
+                progressed += 1
+            # 2) complete steps in order as they become fully done
+            while self._step_i < len(self._processors):
                 g = self._step_i
-                group = self._groups[g]
-                if all(st.kind[(g, j)] == "window"
-                       for j in range(len(group))):
-                    if not all(st.cursors[(g, j)] >= st.total
-                               for j in range(len(group))):
+                p = self._processors[g]
+                if st.kind[g] == "window":
+                    if st.cursors[g] < st.total:
                         break
-                    for p in group:
-                        with self.profiler.timer(p.name, "post",
-                                                 self.devices):
-                            p.post_process()
-                        self._replace(p)
+                    with self.profiler.timer(p.name, "post", self.devices):
+                        p.post_process()
+                    self._replace(p)
                     self._step_i += 1
                 else:
                     ready = all(
                         (pd.dataset.available_extent is None
                          or pd.dataset.available_extent
                          >= pd.dataset.shape[st.axes[id(pd.dataset)]])
-                        for p in group for pd in p.in_data
-                        if id(pd.dataset) in st.axes)
+                        for pd in p.in_data if id(pd.dataset) in st.axes)
                     if not ready:
                         break
                     self.step()
@@ -633,17 +592,13 @@ class PluginRunner:
         cleared the windowed stages yet."""
         st = self._require_stream()
         res_name = self.result_names()[0]
-        if self._step_i >= len(self._groups):
+        if self._step_i >= len(self._processors):
             # the chain has run to its end (and dropped the inputs a
             # re-run would read): the result covers every frame
             return (to_numpy(self.datasets[res_name].materialise()),
                     st.total)
-        barrier_g = None
-        for g in range(len(self._groups)):
-            if any(st.kind[(g, j)] != "window"
-                   for j in range(len(self._groups[g]))):
-                barrier_g = g
-                break
+        barrier_g = next((g for g in range(len(self._processors))
+                          if st.kind[g] != "window"), None)
         if barrier_g is None:
             # fully-windowed chain: the final dataset IS the preview
             final = self._final[res_name]
@@ -652,17 +607,13 @@ class PluginRunner:
                 raise ValueError("no preview available yet")
             return (to_numpy(self._read_slab(final, st.axes[id(final)], 0,
                                              cut)), cut)
-        cut = None
-        for p in self._groups[barrier_g]:
-            for pd in p.in_data:
-                if id(pd.dataset) in st.axes:
-                    e = pd.dataset.available_extent or 0
-                    cut = e if cut is None else min(cut, e)
+        cut = min(((pd.dataset.available_extent or 0)
+                   for pd in self._processors[barrier_g].in_data
+                   if id(pd.dataset) in st.axes), default=0)
         if not cut:
             raise ValueError("no preview available yet: no frames have "
                              "cleared the windowed stages")
-        tail = [p for g in range(barrier_g, len(self._groups))
-                for p in self._groups[g]]
+        tail = self._processors[barrier_g:]
         transport = CudaTransport(self.transport.device)
         new_of: dict[int, DataSet] = {}
 
@@ -747,13 +698,13 @@ class PluginRunner:
         st.ingested = int(state.get("ingested", 0))
         st.eof = bool(state.get("eof", False))
         st.dataset.available_extent = st.ingested
-        # groups already completed before the checkpoint hold finished
+        # steps already completed before the checkpoint hold finished
         # (checkpoint-restored) data — mark their windows complete so
         # downstream consumers see the full extent
-        for (g, j) in list(st.cursors):
+        for g in list(st.cursors):
             if g < self._step_i:
-                st.cursors[(g, j)] = st.total
-                for pd in self._groups[g][j].out_data:
+                st.cursors[g] = st.total
+                for pd in self._processors[g].out_data:
                     pd.dataset.available_extent = st.total
 
     # ------------------------------------------------------------------
@@ -830,29 +781,6 @@ class PluginRunner:
         for pd in p.out_data:
             self.datasets[pd.dataset.name] = pd.dataset
 
-    def _fusion_groups(self, processors):
-        """Group consecutive linear 1-in/1-out plugins."""
-        groups: list[list[BasePlugin]] = []
-        cur: list[BasePlugin] = []
-        for p in processors:
-            linear = (len(p.in_dataset_names) == 1
-                      and len(p.out_dataset_names) == 1
-                      and getattr(p, "fusable", True))
-            chains = bool(cur) and \
-                cur[-1].out_dataset_names[0] == p.in_dataset_names[0] and \
-                cur[-1].driver == p.driver
-            if linear and (not cur or chains):
-                cur.append(p)
-            else:
-                if cur:
-                    groups.append(cur)
-                cur = [p] if linear else []
-                if not linear:
-                    groups.append([p])
-        if cur:
-            groups.append(cur)
-        return groups
-
     def _finalise(self, savers):
         for sv in savers:
             for name in sv.in_dataset_names:
@@ -875,6 +803,68 @@ class PluginRunner:
                       "w") as fh:
                 json.dump(manifest, fh, indent=2)
         self.transport.close()
+
+
+def step_together(runners: Sequence[PluginRunner],
+                  on_fallback: Callable[[str, Exception], None] | None = None
+                  ) -> bool:
+    """Run the next step of ``runners``: one runner, or a gang of runners
+    that step identical chains in lockstep on one transport.  Returns
+    False when the chain is exhausted.
+
+    A gang's step is one ``run_plugin_batch`` call (one launch of each
+    kernel for every member) where the transport has one.  Where the
+    members share no built step (:class:`GangSignatureMismatch`) it
+    calls ``on_fallback(plugin name, error)`` and runs them one by one,
+    as on a transport without a gang step.  The step's cost (with cost
+    analysis on) is measured before the step is timed.  A lone runner's
+    ``process`` span is timed around its step, on its own trace unless
+    the caller bound one; each gang member's gets the shared wall and
+    ``gang``, the gang's size.  Both carry the cost and the kernel
+    launches the step made."""
+    lead, gang = runners[0], len(runners)
+    if gang == 1 and current_trace() is None:
+        with use_trace(lead.profiler.trace):
+            return step_together(runners)
+    plugins = [r.begin_step() for r in runners]
+    if plugins[0] is None:
+        return False
+    transport = lead.transport
+    if gang == 1:
+        p = plugins[0]
+        cost = transport.plugin_cost(p)
+        with lead.profiler.timer(p.name, "process", lead.devices,
+                                 **(cost or {})) as timer, \
+                tally() as launched:
+            transport.run_plugin(p)
+        timer.span.attrs.update(launched.launch_attrs())
+    else:
+        batched = hasattr(transport, "run_plugin_batch")
+        # the first member's trace records what the step builds or
+        # loads for the whole gang; each member's copies land on its
+        # own datasets' trace
+        with use_trace(lead.profiler.trace, gang=gang):
+            cost = transport.plugin_cost(*plugins) if batched else None
+            t0 = time.time()
+            with tally() as launched:
+                if batched:
+                    try:
+                        transport.run_plugin_batch(plugins)
+                    except GangSignatureMismatch as e:
+                        if on_fallback is not None:
+                            on_fallback(plugins[0].name, e)
+                        cost, batched = None, False
+                if not batched:
+                    for p in plugins:
+                        transport.run_plugin(p)
+            t1 = time.time()
+        for r, p in zip(runners, plugins):
+            r.profiler.record(p.name, "process", t0, t1, r.devices,
+                              gang=gang, **(cost or {}),
+                              **launched.launch_attrs())
+    for r in runners:
+        r.complete_step()
+    return True
 
 
 def run_process_list(process_list: ProcessList,

@@ -155,6 +155,26 @@ def pin_fits(owned: int, nbytes: int, phys: int) -> bool:
     return 4 * (owned + pinned_block_bytes(nbytes)) <= phys
 
 
+def _pinned(shapes: Sequence[Sequence[int]], dtype: torch.dtype
+            ) -> tuple[list[torch.Tensor], bool] | None:
+    """Page-locked host blocks of ``shapes`` from torch's caching host
+    allocator, and whether the allocator had every one cached.  None
+    where :func:`pin_fits` refuses them or the allocation fails."""
+    nbytes = sum(pinned_block_bytes(math.prod(s) * dtype.itemsize)
+                 for s in shapes)
+    before = torch.cuda.host_memory_stats()
+    phys = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    if not pin_fits(before["allocated_bytes.current"], nbytes, phys):
+        return None
+    try:
+        blocks = [torch.empty(s, dtype=dtype, pin_memory=True)
+                  for s in shapes]
+    except RuntimeError:            # no page-locked memory to be had
+        return None
+    after = torch.cuda.host_memory_stats()
+    return blocks, after["num_host_alloc"] == before["num_host_alloc"]
+
+
 def _read_off_card(ds: DataSet, b: torch.Tensor) -> np.ndarray:
     """``b`` (``ds``'s tensor on a card) in host memory, as one
     ``transport.to_host`` span.  The destination is a page-locked block
@@ -168,20 +188,12 @@ def _read_off_card(ds: DataSet, b: torch.Tensor) -> np.ndarray:
     with _copy_span("transport.to_host", ds, dataset=ds.name,
                     device=str(b.device), pinned=False,
                     reused=False) as attrs:
-        dst = None
-        before = torch.cuda.host_memory_stats()
-        phys = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-        if pin_fits(before["allocated_bytes.current"], _nbytes(b), phys):
-            try:
-                dst = torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
-            except RuntimeError:        # no page-locked memory to be had
-                pass
-        if dst is None:
+        pinned = _pinned([b.shape], b.dtype)
+        if pinned is None:
             out = to_numpy(b)
         else:
-            after = torch.cuda.host_memory_stats()
-            attrs.update(pinned=True, reused=after["num_host_alloc"]
-                         == before["num_host_alloc"])
+            (dst,), reused = pinned
+            attrs.update(pinned=True, reused=reused)
             dst.copy_(b.detach())
             out = dst.numpy()
         attrs["bytes"] = out.nbytes
@@ -225,19 +237,12 @@ def _stage_blocks(blocks: Sequence[torch.Tensor]
             return None
         shapes.append([(rows, *b.shape[1:])]
                       * (2 if b.shape[0] > rows else 1))
-    nbytes = sum(pinned_block_bytes(math.prod(s) * b.element_size())
-                 for b, ss in zip(blocks, shapes) for s in ss)
-    before = torch.cuda.host_memory_stats()
-    phys = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-    if not pin_fits(before["allocated_bytes.current"], nbytes, phys):
+    pinned = _pinned([s for ss in shapes for s in ss], blocks[0].dtype)
+    if pinned is None:
         return None
-    try:
-        stages = [[torch.empty(s, dtype=b.dtype, pin_memory=True)
-                   for s in ss] for b, ss in zip(blocks, shapes)]
-    except RuntimeError:            # no page-locked memory to be had
-        return None
-    after = torch.cuda.host_memory_stats()
-    return stages, after["num_host_alloc"] == before["num_host_alloc"]
+    stages, reused = pinned
+    it = iter(stages)
+    return [[next(it) for _ in ss] for ss in shapes], reused
 
 
 def _side_stream(device: torch.device):
@@ -595,6 +600,12 @@ class Transport:
         self._sync()
         return outs
 
+    def plugin_cost(self, *plugins: BasePlugin) -> dict[str, float] | None:
+        """Work and memory of one plugin step, or of the gang step of
+        several plugins, measured before the step is timed: None where
+        the transport does not measure them."""
+        return None
+
     def stats(self) -> dict[str, Any]:
         return {}
 
@@ -742,7 +753,7 @@ class InMemoryTransport(Transport):
 # ======================================================================
 class CudaTransport(Transport):
     """One-device mode — datasets stay on the device as tensors; each plugin
-    step (or fused group) is built once per :meth:`_plugin_key`, with its
+    step is built once per :meth:`_plugin_key`, with its
     :meth:`~BasePlugin.jit_constants` handed to it moved to the device;
     an input is dropped at its final use (``PluginData.last_use``)."""
 
@@ -888,10 +899,9 @@ class CudaTransport(Transport):
             arrays.append(t)
         return arrays
 
-    def _release(self, plugin: BasePlugin, produced: Sequence[BasePlugin]
-                 ) -> None:
+    def _release(self, plugin: BasePlugin) -> None:
         """Drop device inputs at their final use (the donation rule)."""
-        outs = {id(pd.dataset) for p in produced for pd in p.out_data}
+        outs = {id(pd.dataset) for pd in plugin.out_data}
         for pd in plugin.in_data:
             if pd.last_use and id(pd.dataset) not in outs and isinstance(
                     pd.dataset.backing, (torch.Tensor, ShardedTensor)):
@@ -909,7 +919,7 @@ class CudaTransport(Transport):
         del arrays
         for pd, o in zip(plugin.out_data, outs):
             pd.dataset.backing = o
-        self._release(plugin, [plugin])
+        self._release(plugin)
         self._sync()
         return outs
 
@@ -975,7 +985,7 @@ class CudaTransport(Transport):
         for p, o in zip(plugins, outs):
             for pd, t in zip(p.out_data, o):
                 pd.dataset.backing = t
-            self._release(p, [p])
+            self._release(p)
         self._sync()
 
     def plugin_cost(self, *plugins: BasePlugin) -> dict[str, float] | None:
@@ -1040,37 +1050,6 @@ class CudaTransport(Transport):
         """The inputs of the step that :meth:`_measure` runs, per
         plugin, and the outputs' shapes (None: the datasets')."""
         return [self._device_in(p) for p in plugins], None
-
-    def run_fused(self, plugins: Sequence[BasePlugin]) -> list[Any]:
-        """Run a linear run of plugins as one step: intermediates stay
-        on the device and are never stored on their datasets."""
-        for p in plugins:
-            self._check_driver(p)
-        first, last = plugins[0], plugins[-1]
-        arrays = self._device_in(first)
-        all_consts = [_device_consts(p, self.device) for p in plugins]
-        key = ("fused", tuple(self._plugin_key(p, c)
-                              for p, c in zip(plugins, all_consts)))
-
-        def builder():
-            fns = [self._plugin_fn(p) for p in plugins]
-
-            def chain(all_consts, *arrays):
-                cur = arrays
-                for f, consts in zip(fns, all_consts):
-                    cur = f(consts, *cur)
-                return cur
-
-            return chain
-
-        outs = list(self.compile_cache.get_or_build(key, builder)(
-            all_consts, *arrays))
-        del arrays
-        for pd, o in zip(last.out_data, outs):
-            pd.dataset.backing = o
-        self._release(first, plugins)
-        self._sync()
-        return outs
 
     def stats(self) -> dict[str, Any]:
         return {"compile_cache": self.compile_cache.stats()}
@@ -1400,36 +1379,9 @@ class ShardedTransport(CudaTransport):
         del arrays
         for pd, o in zip(plugin.out_data, outs):
             pd.dataset.backing = o
-        self._release(plugin, [plugin])
+        self._release(plugin)
         self._sync()
         return outs
-
-    def run_fused(self, plugins: Sequence[BasePlugin]) -> list[Any]:
-        """A linear run of plugins as one step: each member on the
-        slots, re-split between members where the patterns change (the
-        reference's ``with_sharding_constraint``); intermediates stay on
-        the slots and are never stored on their datasets."""
-        for p in plugins:
-            self._check_driver(p)
-        first, last = plugins[0], plugins[-1]
-        layouts = [self._layout(p) for p in plugins]
-        cur = self._device_in(first, layouts[0][0])
-        all_consts = [self._slot_consts(p) for p in plugins]
-        key = ("fused", tuple(self._plugin_key(p, c[self.device])
-                              for p, c in zip(plugins, all_consts)))
-        steps = self.compile_cache.get_or_build(
-            key, lambda: tuple(self._plugin_fn(p) for p in plugins))
-        for i, (p, step, consts, layout) in enumerate(
-                zip(plugins, steps, all_consts, layouts)):
-            if i:
-                cur = [self._resplit(a, d, pd.dataset)
-                       for a, d, pd in zip(cur, layout[0], p.in_data)]
-            cur = self._run_step(p, step, consts, cur, layout)
-        for pd, o in zip(last.out_data, cur):
-            pd.dataset.backing = o
-        self._release(first, plugins)
-        self._sync()
-        return cur
 
     def run_plugin_batch(self, plugins: Sequence[BasePlugin]) -> None:
         """Gang execution on the slots: on each slot the members' shares
@@ -1460,7 +1412,7 @@ class ShardedTransport(CudaTransport):
                     ShardedTensor([o[jm][k] for o in per_slot], d,
                                   self.slots) if sharded
                     else self._replicate(per_slot[0][jm][k]))
-            self._release(p, [p])
+            self._release(p)
         self._sync()
 
     def _measured_inputs(self, plugins: Sequence[BasePlugin]) -> tuple:

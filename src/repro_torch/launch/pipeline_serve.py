@@ -142,9 +142,6 @@ def _build_parser() -> argparse.ArgumentParser:
                          "step (see scheduling notes)")
     ap.add_argument("--batch-max", type=int, default=4,
                     help="--batch: gang size bound")
-    ap.add_argument("--fuse", action=argparse.BooleanOptionalAction,
-                    default=False,
-                    help="run consecutive linear plugins as one step")
     ap.add_argument("--verify", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="compare each job against a serial PluginRunner "
@@ -229,8 +226,7 @@ def _demo_main(args) -> dict[str, Any]:
     sched = PipelineScheduler(
         queue, transport_factory=factory, n_workers=args.workers,
         checkpoints=checkpoints, batch_identical=args.batch,
-        batch_max=args.batch_max, fuse=args.fuse,
-        compile_cache=cache)
+        batch_max=args.batch_max, compile_cache=cache)
 
     jobs = [queue.submit(_chain(args, seed=i), priority=0,
                          job_id=f"tomo-{i:03d}", metadata={"seed": i})
@@ -354,7 +350,7 @@ def _serve_main(args) -> None:
             n_workers=args.workers, max_pending=args.max_pending,
             max_history=args.max_history, checkpoints=checkpoints,
             batch_identical=args.batch, batch_max=args.batch_max,
-            fuse=args.fuse, compile_cache=cache, token=args.token,
+            compile_cache=cache, token=args.token,
             trace_spool=args.trace_spool)
         host, port = service.serve(host=args.host, port=args.serve)
         print(f"pipeline service listening on http://{host}:{port}  "

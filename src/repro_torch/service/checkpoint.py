@@ -297,9 +297,8 @@ class CheckpointStore:
         runner.prepare()
         if man["chain"] != _sig_str(chain_signature(runner.process_list)):
             return 0                      # different pipeline: start over
-        # the step basis must match too: the same chain re-run under a
-        # different fuse setting has different groups, and skipping N of
-        # THOSE would skip plugins that never ran
+        # the step basis must match too: skipping N steps of another
+        # step list would skip plugins that never ran
         if (man.get("n_steps") != runner.n_steps
                 or man.get("step_labels") != runner.step_labels()):
             return 0

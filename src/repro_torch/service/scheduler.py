@@ -35,6 +35,7 @@ card; a caller on the CPU passes a factory of CPU transports.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hmac
 import os
 import re
@@ -49,13 +50,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..core.framework import PluginRunner
+from ..core.framework import PluginRunner, step_together
 from ..core.plugin import _is_jsonable
 from ..core.profiler import Profiler
-from ..core.transport import (GangSignatureMismatch, InMemoryTransport,
-                              Transport)
+from ..core.transport import InMemoryTransport, Transport
 from ..device import resolve_device
-from ..kernels.tally import tally
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import use_trace
 from .checkpoint import CheckpointStore
@@ -221,7 +220,6 @@ class PipelineScheduler:
                  checkpoints: CheckpointStore | None = None,
                  batch_identical: bool = False,
                  batch_max: int = 4,
-                 fuse: bool = False,
                  compile_cache=None,
                  metrics: MetricsRegistry | None = None,
                  events=None):
@@ -237,7 +235,6 @@ class PipelineScheduler:
             batch_identical: gang queued jobs with matching chain
                 signatures into one call per step.
             batch_max: gang size bound.
-            fuse: run consecutive linear plugins as one step.
             compile_cache: held only for ``stats()`` reporting — wire
                 the SAME object into the transports the factory builds.
             metrics: telemetry registry (``repro_torch.obs``) to record
@@ -254,7 +251,6 @@ class PipelineScheduler:
         self.checkpoints = checkpoints
         self.batch_identical = batch_identical
         self.batch_max = max(2, batch_max)
-        self.fuse = fuse
         self.compile_cache = compile_cache   # held for stats reporting
         self.metrics = metrics
         self.events = events
@@ -451,8 +447,7 @@ class PipelineScheduler:
                 self._resolve_upstream(job)
                 runner = PluginRunner(job.process_list,
                                       self.transport_factory(job),
-                                      profiler=Profiler(trace=job.trace),
-                                      fuse=self.fuse)
+                                      profiler=Profiler(trace=job.trace))
                 job.runner = runner
                 runner.prepare()
                 if self.checkpoints is not None:
@@ -578,7 +573,7 @@ class PipelineScheduler:
     # -- gang execution -------------------------------------------------
     def _run_gang(self, jobs: list[Job]) -> None:
         """Identical chains from several jobs step in lockstep; each
-        single-plugin step becomes one batched call.  Faults
+        step becomes one batched call (:func:`step_together`).  Faults
         are isolated where possible: a job whose prepare fails is marked
         failed alone, and a batch-signature mismatch (chain signatures
         equal but runtime shapes differ, e.g. inline-scan loaders) falls
@@ -598,8 +593,7 @@ class PipelineScheduler:
                 with use_trace(job.trace):
                     self._resolve_upstream(job)
                 r = PluginRunner(job.process_list, transport,
-                                 profiler=Profiler(trace=job.trace),
-                                 fuse=self.fuse)
+                                 profiler=Profiler(trace=job.trace))
                 job.runner = r
                 r.prepare()
                 if self.checkpoints is not None:
@@ -640,48 +634,10 @@ class PipelineScheduler:
         try:
             for job in jobs:
                 job.state = JobState.RUNNING
-            can_batch = hasattr(transport, "run_plugin_batch")
             for _ in range(runners[0].n_steps):
-                groups = [r.begin_step() for r in runners]
-                batched = can_batch and len(groups[0]) == 1
-                # the first member's trace records what the step builds
-                # or loads for the whole gang; each member's copies land
-                # on its own datasets' trace
-                with use_trace(jobs[0].trace, gang=len(jobs)):
-                    # the gang step's cost, like a solo step's, is
-                    # measured before its timer starts
-                    cost = (transport.plugin_cost(*[g[0] for g in groups])
-                            if batched and hasattr(transport, "plugin_cost")
-                            else None)
-                    t0 = time.time()
-                    with tally() as launched:
-                        if batched:
-                            try:
-                                transport.run_plugin_batch(
-                                    [g[0] for g in groups])
-                            except GangSignatureMismatch as e:
-                                self._gang_fallback(jobs, groups[0][0].name,
-                                                    e)
-                                cost = None
-                                for g in groups:
-                                    transport.run_plugin(g[0])
-                        else:
-                            for g in groups:
-                                if len(g) > 1:
-                                    transport.run_fused(g)
-                                else:
-                                    transport.run_plugin(g[0])
-                    t1 = time.time()
-                for job, r, g in zip(jobs, runners, groups):
-                    # the batched call is one step over the
-                    # whole gang — each member's trace gets the shared
-                    # wall, tagged with the gang size, the gang step's
-                    # cost and the kernel launches it made
-                    r.profiler.record(g[0].name, "process", t0, t1,
-                                      r.devices, gang=len(jobs),
-                                      **(cost or {}),
-                                      **launched.launch_attrs())
-                    r.complete_step()
+                step_together(runners, functools.partial(
+                    self._gang_fallback, jobs))
+                for job, r in zip(jobs, runners):
                     job.plugin_index = r.current_step
                     if self.checkpoints is not None:
                         with job.trace.span("checkpoint.save"):

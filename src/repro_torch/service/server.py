@@ -147,7 +147,6 @@ class PipelineService:
                  checkpoints: CheckpointStore | None = None,
                  batch_identical: bool = False,
                  batch_max: int = 4,
-                 fuse: bool = False,
                  compile_cache: CompileCache | None = None,
                  workers_remote: bool = False,
                  lease_ttl: float = 15.0,
@@ -239,7 +238,7 @@ class PipelineService:
                 self.queue, transport_factory=transport_factory,
                 n_workers=n_workers, checkpoints=checkpoints,
                 batch_identical=batch_identical, batch_max=batch_max,
-                fuse=fuse, compile_cache=self.compile_cache,
+                compile_cache=self.compile_cache,
                 metrics=self.metrics, events=self.events)
         #: what runs the jobs: the broker or the local scheduler
         self.engine = self.broker if workers_remote else self.scheduler

@@ -59,6 +59,7 @@ is ``cuda`` (the default), ``chunked`` or ``inmemory``.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib
 import io
 import os
@@ -73,15 +74,13 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..core.framework import PluginRunner
+from ..core.framework import PluginRunner, step_together
 from ..core.profiler import Profiler
 from ..core.transport import (ChunkedFileTransport, CudaTransport,
-                              GangSignatureMismatch, InMemoryTransport,
-                              ShardedTransport, Transport, slots_on,
-                              to_numpy)
+                              InMemoryTransport, ShardedTransport,
+                              Transport, slots_on, to_numpy)
 from ..device import resolve_device
 from ..kernels import build as kernel_build
-from ..kernels.tally import tally
 from ..obs.trace import Trace, use_trace
 from .checkpoint import CheckpointStore
 from .client import PipelineClient, ServiceError
@@ -621,46 +620,6 @@ class PipelineWorker:
         except (ServiceError, OSError):
             pass                         # lease lost: nothing to report
 
-    def _gang_step(self, transport: Transport,
-                   live: list[tuple[dict[str, Any], PluginRunner]],
-                   traces: dict[str, Trace]) -> None:
-        """One lockstep step of the gang: ONE ``run_plugin_batch`` call
-        (one launch of each kernel) when every member runs one plugin
-        and the transport gangs, else member by member.  Every member's
-        ``process`` span gets the shared wall, the gang size, the step's
-        cost (with cost analysis) and the launches it made."""
-        groups = [r.begin_step() for _, r in live]
-        batched = (len(live) > 1 and len(groups[0]) == 1
-                   and hasattr(transport, "run_plugin_batch"))
-        cost = (transport.plugin_cost(*[g[0] for g in groups])
-                if batched and hasattr(transport, "plugin_cost") else None)
-        t0 = time.time()
-        # the first member's trace records what the step builds or
-        # loads (the kernel library at a worker's first launch)
-        with use_trace(traces[live[0][0]["job_id"]], gang=len(live)), \
-                tally() as launched:
-            if batched:
-                try:
-                    transport.run_plugin_batch([g[0] for g in groups])
-                except GangSignatureMismatch as e:
-                    self._gang_fallback(live, traces, groups[0][0].name,
-                                        e)
-                    cost = None
-                    for g in groups:
-                        transport.run_plugin(g[0])
-            else:
-                for g in groups:
-                    if len(g) > 1:
-                        transport.run_fused(g)
-                    else:
-                        transport.run_plugin(g[0])
-        t1 = time.time()
-        for (_, r), g in zip(live, groups):
-            r.profiler.record(g[0].name, "process", t0, t1, r.devices,
-                              gang=len(live), **(cost or {}),
-                              **launched.launch_attrs())
-            r.complete_step()
-
     def _gang_fallback(self, live, traces: dict[str, Trace], plugin: str,
                        err: Exception) -> None:
         """A gang step whose members share no built step runs member by
@@ -676,9 +635,9 @@ class PipelineWorker:
     def _run_gang(self, descs: list[dict[str, Any]],
                   pending: tuple[str, ...] = ()) -> set[str]:
         """Execute leased jobs with identical chain signatures in
-        lockstep: ONE transport, each single-plugin step as one
-        ``run_plugin_batch`` call over the whole gang (:meth:`_gang_step`)
-        — so remote parameter sweeps gang exactly like local ones.
+        lockstep: ONE transport, each step as one ``run_plugin_batch``
+        call over the whole gang (:func:`step_together`) — so remote
+        parameter sweeps gang exactly like local ones.
         Transports without batch support run the members one after
         another; a member restored from a checkpoint is handed back to
         the solo path (a gang would drag it to step 0).  Returns the ids
@@ -742,7 +701,8 @@ class PipelineWorker:
                 if not live:
                     break
                 try:
-                    self._gang_step(transport, live, traces)
+                    step_together([r for _, r in live], functools.partial(
+                        self._gang_fallback, live, traces))
                 except Exception as e:   # noqa: BLE001 — fails the gang
                     exc = e
                     break

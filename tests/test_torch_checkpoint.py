@@ -243,6 +243,37 @@ def test_v1_npy_checkpoints_remain_restorable(tmp_path, data):
     np.testing.assert_array_equal(got, ref.transport.read(ref.run()["out"]))
 
 
+def test_a_checkpoint_of_plugin_steps_restores_at_its_step(tmp_path, data):
+    """A step is one plugin: the manifest's ``n_steps`` and
+    ``step_labels`` are the plugin count and names, as every unfused run
+    has written them, so such a checkpoint restores at its step and
+    resumes bit for bit.  A manifest whose steps group plugins (``a+b``
+    labels) is of another step basis and starts over."""
+    store = CheckpointStore(str(tmp_path))
+    r = PluginRunner(branching_chain(data), _cpu())
+    r.prepare()
+    r.step()
+    r.step()
+    store.save("j1", r)
+    path = tmp_path / "j1" / "checkpoint.nxs.json"
+    man = json.load(open(path))
+    assert (man["n_steps"], man["step_labels"], man["completed_steps"]) \
+        == (3, ["add_f", "add_f", "combine"], 2)
+    r2 = PluginRunner(branching_chain(data), _cpu())
+    assert store.restore("j1", r2) == 2
+    while r2.step():
+        pass
+    r2.finalise()
+    ref = PluginRunner(branching_chain(data), _cpu())
+    np.testing.assert_array_equal(r2.transport.read(r2.datasets["out"]),
+                                  ref.transport.read(ref.run()["out"]))
+    man.update(n_steps=2, step_labels=["add_f+add_f", "combine"],
+               completed_steps=1)
+    json.dump(man, open(path, "w"))
+    assert store.restore("j1", PluginRunner(branching_chain(data),
+                                            _cpu())) == 0
+
+
 def test_checkpoint_written_by_jax_package_loads_in_port(tmp_path, data):
     """Same manifest, same files: every dataset of a checkpoint the JAX
     package wrote loads in the port's store, onto the port's device."""

@@ -15,11 +15,13 @@ from repro.tomo import standard_chain as jax_standard_chain
 
 from repro_torch.core import (BaseLoader, BasePlugin, BaseSaver, ChunkedFile,
                               ChunkedFileTransport, CudaTransport, DataSet,
-                              GPU_DRIVER, InMemoryTransport, LambdaFilter,
+                              GangSignatureMismatch, GPU_DRIVER,
+                              InMemoryTransport, LambdaFilter,
                               LocalCompileCache, Pattern, PluginRunner,
                               ProcessList, ProcessListError, Profiler,
-                              chunks_touched, naive_chunks, optimise_chunks,
-                              run_process_list)
+                              ShardedTransport, chunks_touched, naive_chunks,
+                              optimise_chunks, run_process_list)
+from repro_torch.core.framework import step_together
 from repro_torch.obs import Trace, use_trace
 
 
@@ -195,16 +197,6 @@ class _JaxSaver(R.BaseSaver):
         _JaxSaver.captured[ds.name] = np.asarray(ds.backing)
 
 
-def test_fusion_matches_unfused(data):
-    CaptureSaver.captured = {}
-    runner = PluginRunner(_chain(data), CudaTransport(device="cpu"),
-                          fuse=True)
-    runner.run()
-    assert runner.n_steps == 1 and "+" in runner.step_labels()[0]
-    np.testing.assert_allclose(CaptureSaver.captured["tomo"], data * 2 + 1,
-                               rtol=1e-6)
-
-
 def test_step_cache_builds_once_per_key(data):
     cache = LocalCompileCache()
     trace = Trace()
@@ -214,6 +206,122 @@ def test_step_cache_builds_once_per_key(data):
                          CudaTransport("cpu", compile_cache=cache)).run()
     assert cache.stats() == {"hits": 2, "misses": 2, "entries": 2}
     assert sum(s.name == "compile" for s in trace.spans()) == 2
+
+
+# ------------------------------------------------------------ step_together
+#: the transports that gang, with cost analysis on
+_GANG_TRANSPORTS = {
+    "cuda": lambda: CudaTransport("cpu", cost_analysis=True),
+    "sharded": lambda: ShardedTransport(("cpu",) * 2, cost_analysis=True),
+}
+_COST = {"flops", "bytes", "bytes_accessed", "peak_memory"}
+
+
+def _prepared(arrays, transport):
+    runners = [PluginRunner(_chain(a), transport) for a in arrays]
+    for r in runners:
+        r.prepare()
+    return runners
+
+
+def _process_spans(r):
+    return [s for s in r.profiler.trace.spans()
+            if s.name.endswith(".process")]
+
+
+def _counting(transport, method):
+    """Wrap ``transport.<method>`` to record how many plugins each call
+    was given."""
+    calls, inner = [], getattr(transport, method)
+
+    def counted(arg):
+        calls.append(len(arg) if isinstance(arg, list) else 1)
+        return inner(arg)
+
+    setattr(transport, method, counted)
+    return calls
+
+
+@pytest.mark.parametrize("gang", [1, 2, 4])
+@pytest.mark.parametrize("kind", sorted(_GANG_TRANSPORTS))
+def test_step_together_runs_one_runner_or_a_gang(rng, kind, gang):
+    """One runner steps alone through ``run_plugin``; a gang of 2 or 4
+    runners on one transport steps as one ``run_plugin_batch`` call a
+    step.  Each member equals its chain run alone, and each member's
+    ``process`` span carries the devices, the step's cost and blocks,
+    and ``gang`` only for a gang."""
+    arrays = [rng.normal(size=(8, 6, 4)).astype(np.float32)
+              for _ in range(gang)]
+    transport = _GANG_TRANSPORTS[kind]()
+    solo = _counting(transport, "run_plugin")
+    batch = _counting(transport, "run_plugin_batch")
+    runners = _prepared(arrays, transport)
+    fell = []
+    steps = 0
+    while step_together(runners, lambda *a: fell.append(a)):
+        steps += 1
+    assert steps == 2 and fell == []
+    assert (solo, batch) == (([1, 1], []) if gang == 1
+                             else ([], [gang, gang]))
+    devices = len(getattr(transport, "slots", [None]))
+    want = {"plugin", "phase", "devices", "blocks"} | _COST
+    for a, r in zip(arrays, runners):
+        assert r.current_step == 2
+        np.testing.assert_allclose(transport.read(r.datasets["tomo"]),
+                                   a * 2 + 1, rtol=1e-6)
+        spans = _process_spans(r)
+        assert [s.name for s in spans] == \
+            ["plugin.lambda_filter.process"] * 2
+        for s in spans:
+            assert set(s.attrs) == (want | {"gang"} if gang > 1 else want)
+            assert s.attrs["devices"] == devices
+            assert s.attrs.get("gang", 1) == gang
+    assert not step_together(runners)
+
+
+@pytest.mark.parametrize("kind", sorted(_GANG_TRANSPORTS))
+def test_a_gang_that_shares_no_step_runs_its_members_one_by_one(rng, kind):
+    """Members of different shapes share no built step: each step calls
+    ``on_fallback`` once with the plugin's name and the
+    :class:`GangSignatureMismatch`, then runs the members one by one;
+    their spans keep ``gang`` and carry no cost."""
+    arrays = [rng.normal(size=s).astype(np.float32)
+              for s in ((8, 6, 4), (8, 5, 4))]
+    transport = _GANG_TRANSPORTS[kind]()
+    solo = _counting(transport, "run_plugin")
+    runners = _prepared(arrays, transport)
+    fell = []
+    assert step_together(runners, lambda name, err: fell.append(
+        (name, type(err))))
+    assert fell == [("lambda_filter", GangSignatureMismatch)]
+    assert solo == [1, 1]
+    while step_together(runners, lambda name, err: fell.append(
+            (name, type(err)))):
+        pass
+    assert len(fell) == 2 and solo == [1] * 4
+    for a, r in zip(arrays, runners):
+        np.testing.assert_allclose(transport.read(r.datasets["tomo"]),
+                                   a * 2 + 1, rtol=1e-6)
+        for s in _process_spans(r):
+            assert not _COST & set(s.attrs) and s.attrs["gang"] == 2
+
+
+def test_a_gang_on_a_transport_without_a_gang_step(rng):
+    """An ``InMemoryTransport`` has no gang step: the members run one by
+    one, no fallback is reported, and their spans carry ``gang``."""
+    arrays = [rng.normal(size=(8, 6, 4)).astype(np.float32)
+              for _ in range(2)]
+    transport = InMemoryTransport("cpu")
+    solo = _counting(transport, "run_plugin")
+    runners = _prepared(arrays, transport)
+    fell = []
+    while step_together(runners, lambda *a: fell.append(a)):
+        pass
+    assert fell == [] and solo == [1] * 4
+    for a, r in zip(arrays, runners):
+        np.testing.assert_allclose(transport.read(r.datasets["tomo"]),
+                                   a * 2 + 1, rtol=1e-6)
+        assert [s.attrs["gang"] for s in _process_spans(r)] == [2, 2]
 
 
 def test_dataset_replacement_semantics(data):

@@ -575,8 +575,7 @@ def test_spectrum_scale_beyond_2_31_bins_on_card(cuda):
     assert torch.equal(got, scale_spectrum_ref(spec, filt))
 
 
-@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
-def test_four_slots_on_one_card_equal_the_one_card_chain(cuda, fuse):
+def test_four_slots_on_one_card_equal_the_one_card_chain(cuda):
     """ShardedTransport over ("cuda:0",) * 4: the reconstruction equals
     the one-card run, and every kernel launches once per slot."""
     from repro_torch.core import ShardedTransport
@@ -587,7 +586,7 @@ def test_four_slots_on_one_card_equal_the_one_card_chain(cuda, fuse):
     before = (correct_cuda.launches, scale_spectrum_cuda.launches,
               backproject_cuda.launches)
     tr = ShardedTransport(("cuda:0",) * 4)
-    r = PluginRunner(_scan_chain(scan, 64, 96, 4), tr, fuse=fuse)
+    r = PluginRunner(_scan_chain(scan, 64, 96, 4), tr)
     got = tr.read(r.run()["recon"])
     assert (correct_cuda.launches, scale_spectrum_cuda.launches,
             backproject_cuda.launches) == tuple(b + 4 for b in before)

@@ -2,7 +2,7 @@
 the JAX package's ``ShardedTransport``.
 
 ``standard_chain(n_det=64, n_angles=128, n_rows=4)`` on 1, 2 and 4 CPU
-slots, fused and unfused, against the JAX transport on its tests'
+slots against the JAX transport on its tests'
 one-device mesh (rtol 1e-3, atol 1e-4: the chain's bound,
 ``test_ref_vs_pallas_chain_agree``) and against the port's
 ``CudaTransport("cpu")`` bit for bit (every step is per frame, and a
@@ -68,10 +68,10 @@ def _with_scan(pl, scan):
     return pl
 
 
-def _recon(transport, scan, fuse=False, **over):
+def _recon(transport, scan, **over):
     r = PluginRunner(_with_scan(standard_chain(**{**CHAIN, **over},
                                                device="cpu"), scan),
-                     transport, fuse=fuse)
+                     transport)
     return r.transport.read(r.run()["recon"]), r
 
 
@@ -82,16 +82,12 @@ def scan():
 
 @pytest.fixture(scope="module")
 def jax_one_device(scan):
-    """The JAX ``ShardedTransport`` on a one-device mesh, unfused and
-    fused."""
+    """The JAX ``ShardedTransport`` on a one-device mesh."""
     mesh = jax.make_mesh((1,), ("data",),
                          axis_types=(jax.sharding.AxisType.Auto,))
-    out = {}
-    for fuse in (False, True):
-        r = R.PluginRunner(_with_scan(JT.standard_chain(**CHAIN), scan),
-                           R.ShardedTransport(mesh), fuse=fuse)
-        out[fuse] = np.asarray(r.run()["recon"].materialise())
-    return out
+    r = R.PluginRunner(_with_scan(JT.standard_chain(**CHAIN), scan),
+                       R.ShardedTransport(mesh))
+    return np.asarray(r.run()["recon"].materialise())
 
 
 @pytest.fixture(scope="module")
@@ -99,17 +95,16 @@ def one_card(scan):
     return _recon(CudaTransport("cpu"), scan)[0]
 
 
-@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
 @pytest.mark.parametrize("n", [1, 2, 4])
 def test_chain_on_slots_matches_jax_and_one_device(scan, jax_one_device,
-                                                   one_card, n, fuse):
-    got, r = _recon(_slots(n), scan, fuse=fuse)
-    np.testing.assert_allclose(got, jax_one_device[fuse], **TOL)
+                                                   one_card, n):
+    got, r = _recon(_slots(n), scan)
+    np.testing.assert_allclose(got, jax_one_device, **TOL)
     np.testing.assert_array_equal(got, one_card)
     recon = r.datasets["recon"].backing
     assert isinstance(recon, ShardedTensor)
     assert recon.dim == 0 and len(recon.shards) == n
-    assert r.n_steps == (1 if fuse else 4)
+    assert r.n_steps == 4
     assert {e.extra.get("devices", e.devices) for e in r.profiler.events
             if e.phase == "process"} == {n}
 
@@ -129,14 +124,11 @@ _CHILD = textwrap.dedent("""
                              ParallelGeometry(n_angles, n_det, n_rows))
     mesh = jax.make_mesh((4,), ("data",),
                          axis_types=(jax.sharding.AxisType.Auto,))
-    out, specs = {}, {}
-    for fuse in (False, True):
-        pl = standard_chain(n_det=n_det, n_angles=n_angles, n_rows=n_rows)
-        pl.entries[0].params["scan"] = scan
-        ds = PluginRunner(pl, ShardedTransport(mesh), fuse=fuse).run()[
-            "recon"]
-        out[f"fused{int(fuse)}"] = np.asarray(ds.materialise())
-        specs[fuse] = str(ds.backing.sharding.spec)
+    pl = standard_chain(n_det=n_det, n_angles=n_angles, n_rows=n_rows)
+    pl.entries[0].params["scan"] = scan
+    ds = PluginRunner(pl, ShardedTransport(mesh)).run()["recon"]
+    recon = np.asarray(ds.materialise())
+    spec = str(ds.backing.sharding.spec)
     # a split that does not divide: 5 angles over 2 devices
     pl = standard_chain(n_det=16, n_angles=5, n_rows=2)
     try:
@@ -145,8 +137,8 @@ _CHILD = textwrap.dedent("""
         refused = None
     except ValueError as e:
         refused = str(e)
-    np.savez(sys.argv[1], **out)
-    print(json.dumps({"specs": list(specs.values()), "refused": refused,
+    np.save(sys.argv[1], recon)
+    print(json.dumps({"spec": spec, "refused": refused,
                       "devices": jax.device_count()}))
 """)
 
@@ -155,7 +147,7 @@ _CHILD = textwrap.dedent("""
 def jax_four_devices(tmp_path_factory):
     """The JAX chain over 4 host-faked devices, in a subprocess (the
     device count is fixed when jax starts)."""
-    path = str(tmp_path_factory.mktemp("jax4") / "recon.npz")
+    path = str(tmp_path_factory.mktemp("jax4") / "recon.npy")
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
            "PYTHONPATH": os.path.join(REPO, "src")}
     proc = subprocess.run([sys.executable, "-c", _CHILD % CHAIN, path],
@@ -163,21 +155,18 @@ def jax_four_devices(tmp_path_factory):
                           timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     info = json.loads(proc.stdout.strip().splitlines()[-1])
-    with np.load(path) as f:
-        return {k: f[k] for k in f.files}, info
+    return np.load(path), info
 
 
-@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
-def test_four_slots_match_jax_over_four_devices(scan, jax_four_devices,
-                                                fuse):
+def test_four_slots_match_jax_over_four_devices(scan, jax_four_devices):
     """The one honest parity test of the split itself: the reference's
     result split as PartitionSpec('data', None, None) over 4 devices,
     the port's over 4 slots along the same dim."""
-    recons, info = jax_four_devices
+    recon, info = jax_four_devices
     assert info["devices"] == 4
-    assert info["specs"] == ["PartitionSpec('data', None, None)"] * 2
-    got, r = _recon(_slots(4), scan, fuse=fuse)
-    np.testing.assert_allclose(got, recons[f"fused{int(fuse)}"], **TOL)
+    assert info["spec"] == "PartitionSpec('data', None, None)"
+    got, r = _recon(_slots(4), scan)
+    np.testing.assert_allclose(got, recon, **TOL)
     assert r.datasets["recon"].backing.dim == 0
 
 
@@ -213,21 +202,19 @@ def uneven_scan():
                             UNEVEN["n_rows"]))
 
 
-@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
-def test_uneven_split_over_four_slots(uneven_scan, fuse):
+def test_uneven_split_over_four_slots(uneven_scan):
     """61 angles over 4 slots: the projections split 16/15/15/15 (the
     first slot takes the one left over); the volume equals one slot's
     run and the reference's one-device run within the chain's bound."""
     mesh = jax.make_mesh((1,), ("data",),
                          axis_types=(jax.sharding.AxisType.Auto,))
     ref = R.PluginRunner(_with_scan(JT.standard_chain(**UNEVEN),
-                                    uneven_scan), R.ShardedTransport(mesh),
-                         fuse=fuse)
+                                    uneven_scan), R.ShardedTransport(mesh))
     want = np.asarray(ref.run()["recon"].materialise())
     one, _ = _recon(CudaTransport("cpu"), uneven_scan, **UNEVEN)
     tr = _slots(4)
     r = PluginRunner(_with_scan(standard_chain(**UNEVEN, device="cpu"),
-                                uneven_scan), tr, fuse=fuse)
+                                uneven_scan), tr)
     raw = tr.device_put(r.prepare().datasets["tomo"])
     assert [t.shape[0] for t in raw.shards] == [16, 15, 15, 15]
     got = tr.read(r.run()["recon"])
@@ -387,13 +374,12 @@ def test_replicated_plugin_equals_its_one_device_run(data):
     assert tr.stats()["alltoall_bytes"] == 0
 
 
-@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
-def test_transports_agree_fused_and_unfused(data, fuse):
-    """tests/test_framework.py:78,87 on 2 slots."""
-    r = PluginRunner(_lambda_chain(data), _slots(2), fuse=fuse)
+def test_transports_agree(data):
+    """tests/test_framework.py:78 on 2 slots."""
+    r = PluginRunner(_lambda_chain(data), _slots(2))
     got = r.transport.read(r.run()["tomo"])
     np.testing.assert_allclose(got, data * 2 + 1, rtol=1e-6)
-    assert r.n_steps == (1 if fuse else 2)
+    assert r.n_steps == 2
     assert r.transport.stats()["alltoalls"] == 1
 
 
@@ -654,11 +640,11 @@ def test_cost_is_one_slots_step(scan):
                                     scan), tr)
         steps = []
         while True:
-            group = r.begin_step()
-            if group is None:
+            p = r.begin_step()
+            if p is None:
                 break
-            steps.append(tr.plugin_cost(group[0]))
-            tr.run_plugin(group[0])
+            steps.append(tr.plugin_cost(p))
+            tr.run_plugin(p)
             r.complete_step()
         costs.append(steps)
     assert [c["bytes"] > 0 for c in costs[0]] == [True, False, True, True]

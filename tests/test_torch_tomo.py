@@ -237,14 +237,3 @@ def test_chain_on_host_transports(make):
         assert stats.chunk_reads > 0 and stats.chunk_writes > 0
 
 
-def test_fused_chain_matches_unfused():
-    scan = simulate_raw_scan(phantom_stack(32, 1),
-                             ParallelGeometry(32, 32, 1), device="cpu")
-    plain, _, _ = _run(_with_scan(standard_chain(32, 32, 1, device="cpu"),
-                                  scan), CudaTransport(device="cpu"))
-    runner = PluginRunner(_with_scan(standard_chain(32, 32, 1,
-                                                    device="cpu"), scan),
-                          CudaTransport(device="cpu"), fuse=True)
-    fused = runner.transport.read(runner.run()["recon"])
-    assert runner.n_steps == 1        # the linear chain is one step
-    np.testing.assert_array_equal(fused, plain)

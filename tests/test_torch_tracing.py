@@ -134,17 +134,16 @@ def test_sharded_read_is_one_gather_span_with_its_slots():
     assert t0 <= dev.start <= host.end <= t1
 
 
-@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
-def test_the_all_to_all_is_one_span_on_the_requests_trace(fuse):
+def test_the_all_to_all_is_one_span_on_the_requests_trace():
     """13 angles over 4 slots (4/3/3/3), projections to sinograms: one
     ``transport.alltoall`` span on the request's trace, inside the ring
-    removal's step (or the fused step), carrying the bytes that crossed
+    removal's step, carrying the bytes that crossed
     between slots: every entry of the corrected stack but the blocks a
     slot keeps for itself."""
     transport = ShardedTransport(("cpu",) * 4)
     t0 = time.time()
     runner = PluginRunner(standard_chain(**{**CHAIN, "n_angles": 13}),
-                          transport, fuse=fuse)
+                          transport)
     runner.run()
     tr = runner.profiler.trace
     (a2a,) = _named(tr, "transport.alltoall")
@@ -156,9 +155,7 @@ def test_the_all_to_all_is_one_span_on_the_requests_trace(fuse):
     assert transport.stats()["alltoall_bytes"] == stack - kept
     (step,) = [s for s in tr.spans() if s.name.endswith(".process")
                and s.start <= a2a.start and a2a.end <= s.end]
-    assert step.name == ("plugin.dark_flat_correction+ring_removal+"
-                         "sinogram_filter+fbp_recon.process" if fuse
-                         else "plugin.ring_removal.process")
+    assert step.name == "plugin.ring_removal.process"
     assert t0 <= a2a.start <= a2a.end <= time.time()
 
 

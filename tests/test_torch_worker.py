@@ -26,8 +26,8 @@ import torch
 import repro.core as R
 import repro.service as JS
 
-from repro_torch.core import (CudaTransport, InMemoryTransport,
-                              PluginRunner)
+from repro_torch.core import (PROJECTION, BaseFilter, CudaTransport,
+                              InMemoryTransport, PluginRunner)
 from repro_torch.service import (JobQueue, PipelineClient, PipelineService,
                                  PipelineWorker, ServiceError,
                                  chain_plugin_names, from_spec, wire)
@@ -525,6 +525,59 @@ def test_shared_fs_results_and_outside_paths_refused(broker):
         client.complete(j2, "fs-w", "done",
                         results={"recon": {"path": "/etc/hostname"}})
     assert ei.value.status == 400
+
+
+class _Bias(BaseFilter):
+    """Adds a per-job bias, a data param: gang members' constants differ
+    and the plugin has no gang hook, so they share no built step."""
+
+    name = "bias_per_job"
+    pattern_name = PROJECTION
+    frames = 1
+    parameters = {"bias": 0.0}
+    data_params = ("bias",)
+
+    def setup(self, in_datasets):
+        self._bias = float(self.params["bias"])
+        return super().setup(in_datasets)
+
+    def process_frames(self, frames):
+        return frames[0] + self._bias
+
+
+def test_gang_mismatch_marks_each_members_trace(broker):
+    """Two leased jobs of one chain signature whose bias differs share no
+    built step for it: the worker's gang runs that step member by
+    member, counts one fallback, and marks each member's trace with one
+    ``gang.fallback`` span naming the plugin and the gang's size; every
+    ``process`` span keeps the gang's size, and each result equals its
+    solo run."""
+    wire.register_plugin(_Bias)
+    svc, client = broker
+    specs = []
+    for bias in (0.5, 1.5):
+        spec = _spec(seed=3)
+        spec["plugins"].insert(2, {
+            "plugin": "bias_per_job", "params": {"bias": bias},
+            "in_datasets": ["tomo"], "out_datasets": ["tomo"]})
+        specs.append(spec)
+    ids = [client.submit(s) for s in specs]
+    w = PipelineWorker(client.base_url, device="cpu", worker_id="gang-w",
+                       max_batch=2, poll=0.01, heartbeat=0.1)
+    w.register()
+    assert w.run_once() is True
+    assert w.gang_fallbacks == 1
+    for jid, spec in zip(ids, specs):
+        assert client.status(jid)["state"] == "done"
+        np.testing.assert_allclose(client.result(jid), _reference(spec),
+                                   **TOL)
+        spans = client.trace(jid)["spans"]
+        (fell,) = [s for s in spans if s["name"] == "gang.fallback"]
+        assert (fell["attrs"]["plugin"], fell["attrs"]["gang"]) == \
+            ("bias_per_job", 2)
+        assert "differ" in fell["attrs"]["reason"]
+        assert {s["attrs"].get("gang") for s in spans
+                if s.get("attrs", {}).get("phase") == "process"} == {2}
 
 
 # ====================================================== in-process worker

@@ -51,7 +51,6 @@ class FailingPlugin(BaseFilter):
     name = "failing_plugin"
     pattern_name = PROJECTION
     frames = 1
-    fusable = False
     parameters = {"message": "injected failure"}
 
     def process_frames(self, frames):

@@ -33,7 +33,6 @@ class SlowIdentity(BaseFilter):
     name = "slow_identity"
     pattern_name = PROJECTION
     frames = 1
-    fusable = False
     parameters = {"delay": 0.1}
 
     def process_frames(self, frames):
@@ -50,7 +49,6 @@ class SlowVolumeIdentity(BaseFilter):
     name = "slow_volume_identity"
     pattern_name = VOLUME_XZ
     frames = 1
-    fusable = False
     parameters = {"delay": 0.1}
 
     def process_frames(self, frames):
@@ -67,7 +65,6 @@ class FailingPlugin(BaseFilter):
     name = "failing_plugin"
     pattern_name = PROJECTION
     frames = 1
-    fusable = False
     parameters = {"message": "injected failure"}
 
     def process_frames(self, frames):
