@@ -820,8 +820,9 @@ def step_together(runners: Sequence[PluginRunner],
     analysis on) is measured before the step is timed.  A lone runner's
     ``process`` span is timed around its step, on its own trace unless
     the caller bound one; each gang member's gets the shared wall and
-    ``gang``, the gang's size.  Both carry the cost and the kernel
-    launches the step made."""
+    ``gang``, the gang's size.  Both carry the plugin's
+    :meth:`~BasePlugin.span_attrs`, the cost (which wins where the two
+    name one attribute) and the kernel launches the step made."""
     lead, gang = runners[0], len(runners)
     if gang == 1 and current_trace() is None:
         with use_trace(lead.profiler.trace):
@@ -833,8 +834,9 @@ def step_together(runners: Sequence[PluginRunner],
     if gang == 1:
         p = plugins[0]
         cost = transport.plugin_cost(p)
+        attrs = {**p.span_attrs(), **(cost or {})}
         with lead.profiler.timer(p.name, "process", lead.devices,
-                                 **(cost or {})) as timer, \
+                                 **attrs) as timer, \
                 tally() as launched:
             transport.run_plugin(p)
         timer.span.attrs.update(launched.launch_attrs())
@@ -860,7 +862,8 @@ def step_together(runners: Sequence[PluginRunner],
             t1 = time.time()
         for r, p in zip(runners, plugins):
             r.profiler.record(p.name, "process", t0, t1, r.devices,
-                              gang=gang, **(cost or {}),
+                              gang=gang,
+                              **{**p.span_attrs(), **(cost or {})},
                               **launched.launch_attrs())
     for r in runners:
         r.complete_step()

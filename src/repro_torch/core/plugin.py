@@ -142,6 +142,13 @@ class BasePlugin:
         undeclared, the stack runs in one call."""
         return 0
 
+    def span_attrs(self) -> dict[str, Any]:
+        """Attributes of this plugin's step that its ``process`` span
+        carries, from the shapes and parameters ``setup`` fixed (the
+        step's cost and launches, where measured, carry their own).
+        Empty by default."""
+        return {}
+
     # -- optional hooks -------------------------------------------------
     def pre_process(self) -> None:  # once, before the frame loop
         pass

@@ -16,6 +16,7 @@ import weakref
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.dataset import DataSet
 from ..core.patterns import PROJECTION, SINOGRAM, TIMESERIES, VOLUME_XZ
@@ -148,12 +149,20 @@ class DarkFlatCorrection(BaseFilter):
 
 class PaganinFilter(BaseFilter):
     """Single-distance phase retrieval (Paganin 2002) — projection-space
-    low-pass:  T = −ln( F⁻¹[ F[I] / (1 + τ(kx²+ky²)) ] )."""
+    low-pass:  T = −ln( F⁻¹[ F[I] / (1 + τ(kx²+ky²)) ] ).
+
+    ``tau`` (px²) is the one strength, with the frequencies k in cycles
+    per pixel: τ = (δ/β)·π·λ·z / p² for the ratio δ/β, the wavelength
+    λ, the propagation distance z and the pixel size p: δ/β 250 at 53
+    keV, 1 m and a 1.28 µm pixel give τ ≈ 11,214 px².  ``pad_y`` and
+    ``pad_x`` rows and columns are repeated from each frame's edges
+    before the transform (Savu's padding) and cropped after it; the
+    frequencies are those of the padded frame."""
 
     name = "paganin_filter"
     pattern_name = PROJECTION
     frames = 1
-    parameters = {"tau": 10.0}   # δ·z/μ lumped constant, pixel units
+    parameters = {"tau": 10.0, "pad_y": 0, "pad_x": 0}
     # tau only shapes self._denom (a constant), so it is sweepable
     tunable_params = ("tau",)
 
@@ -161,18 +170,25 @@ class PaganinFilter(BaseFilter):
         (din,) = in_datasets
         dout = din.like(self.out_dataset_names[0], dtype=np.float32)
         dout.metadata = dict(din.metadata)
-        ny, nx = din.shape[1], din.shape[2]
-        ky = np.fft.fftfreq(ny)[:, None]
-        kx = np.fft.fftfreq(nx)[None, :]
+        py, px = self._pads()
+        ky = np.fft.fftfreq(din.shape[1] + 2 * py)[:, None]
+        kx = np.fft.fftfreq(din.shape[2] + 2 * px)[None, :]
         self._denom = torch.as_tensor(
             (1.0 / (1.0 + self.params["tau"] * (kx ** 2 + ky ** 2)))
             .astype(np.complex64))
         self.chunk_frames(self.pattern_name, self.frames)
         return [dout]
 
+    def _pads(self) -> tuple[int, int]:
+        py, px = int(self.params["pad_y"]), int(self.params["pad_x"])
+        if py < 0 or px < 0:
+            raise ValueError(f"paganin_filter: pads must be >= 0, got "
+                             f"pad_y {py}, pad_x {px}")
+        return py, px
+
     def process_frames(self, frames):
         (block,) = frames          # (m, y, x) — already −log corrected
-        return self._retrieve(block, self._denom[None])
+        return self._retrieve(block, self._denom[None], self._pads())
 
     def process_frames_batched(self, frames, consts, counts):
         """A gang's frames, each member with its own ``tau`` (its own
@@ -180,14 +196,39 @@ class PaganinFilter(BaseFilter):
         (block,) = frames
         return self._retrieve(block, torch.stack(
             [c["_denom"] for c in consts])[member_rows(
-                counts, block.shape[0], len(consts), block.device)])
+                counts, block.shape[0], len(consts), block.device)],
+            self._pads())
+
+    def frame_bytes(self, frame_shapes):
+        """A padded frame's intensity, its spectrum and the scaled
+        spectrum (complex64), and the cropped result (float32)."""
+        ((ny, nx),) = frame_shapes
+        py, px = self._pads()
+        return 3 * (ny + 2 * py) * (nx + 2 * px) * 8 + ny * nx * 4
+
+    def span_attrs(self):
+        """The step's frames, its transform's padded ``[y, x]``, the
+        pads, and the float32 projections' bytes read and written."""
+        frames, ny, nx = self.in_data[0].dataset.shape
+        py, px = self._pads()
+        return {"frames": frames, "fft_shape": [ny + 2 * py, nx + 2 * px],
+                "pad": [py, px], "bytes": 2 * frames * ny * nx * 4}
 
     @staticmethod
-    def _retrieve(block, denom):
+    def _retrieve(block, denom, pads):
+        py, px = pads
         intensity = torch.exp(-block)          # back to transmission
+        if py or px:
+            intensity = F.pad(intensity, (px, px, py, py), mode="replicate")
+        # each padded buffer goes once the next exists: at most the three
+        # complex64 frames that frame_bytes declares live at once
         spec = torch.fft.fft2(intensity.to(torch.complex64), dim=(1, 2))
+        del intensity
         filt = torch.fft.ifft2(spec * denom, dim=(1, 2)).real
-        return -torch.log(torch.clamp(filt, min=1e-6))
+        del spec
+        ny, nx = filt.shape[1] - 2 * py, filt.shape[2] - 2 * px
+        return -torch.log(torch.clamp(filt[:, py:py + ny, px:px + nx],
+                                      min=1e-6))
 
 
 class RingRemoval(BaseFilter):

@@ -176,6 +176,21 @@ def test_plugin_matches_jax(rng, name):
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
 
 
+def test_unpadded_paganin_matches_jax(rng):
+    """The port's Paganin filter with its edge pads given as 0 (the
+    default) is the JAX package's filter, which has no pads."""
+    params, make_ds, block, rtol, atol = _plugin_case("PaganinFilter", rng)
+    jp = JP.PaganinFilter(in_datasets=["tomo"], out_datasets=["out"],
+                          **params)
+    tp = TP.PaganinFilter(in_datasets=["tomo"], out_datasets=["out"],
+                          pad_y=0, pad_x=0, **params)
+    jp.setup([make_ds(_Jax)])
+    tp.setup([make_ds(_Port)])
+    want = np.asarray(jp.process_frames([jnp.asarray(block)]))
+    got = tp.process_frames([torch.from_numpy(block)]).numpy()
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
 def test_loaders_and_saver_match_jax(rng):
     scan = JT.simulate_raw_scan(JT.phantom_stack(16, 2),
                                 JT.ParallelGeometry(8, 16, 2))

@@ -131,16 +131,18 @@ def test_registry_matches_jax_registry():
     """Same wire names as the JAX package's default registry (its tomo
     plugins; other tests may register more there), and every parameter
     it declares is declared here with the same default; the port's
-    loader adds one, ``device``."""
+    loader adds one, ``device``, and its Paganin filter two, the edge
+    pads ``pad_y`` and ``pad_x``."""
     mine = registry_spec()
     ref = {name: cls.param_spec()
            for name, cls in JS.registered_plugins().items()
            if cls.__module__ == "repro.tomo.plugins"}
     assert sorted(mine) == sorted(ref)
+    added = {"synthetic_tomo_loader": {"device"},
+             "paganin_filter": {"pad_y", "pad_x"}}
     for name, spec in ref.items():
         extra = set(mine[name]["params"]) - set(spec["params"])
-        assert extra == ({"device"} if name == "synthetic_tomo_loader"
-                         else set())
+        assert extra == added.get(name, set())
         for k, v in spec["params"].items():
             assert mine[name]["params"][k] == v, (name, k)
 
