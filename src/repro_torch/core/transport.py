@@ -191,25 +191,34 @@ def _read_off_card(ds: DataSet, b: torch.Tensor) -> np.ndarray:
     same size, from any transport.  The array holds its block, so two
     live results never share one.  The span's ``pinned`` says which
     destination was taken, ``reused`` whether the allocator had the
-    block cached.  A fresh pageable array instead where
-    :func:`pin_fits` refuses or the page-locked allocation fails."""
+    block cached.  Where :func:`pin_fits` refuses that block or its
+    allocation fails, a fresh pageable array, filled on several lanes
+    through recycled page-locked staging blocks
+    (:func:`_read_staged`): the span then says ``staged``, ``reused``
+    of the staging blocks, ``chunks`` and ``lanes``.  One pageable copy
+    where the staging blocks are refused too."""
     with _copy_span("transport.to_host", ds, dataset=ds.name,
-                    device=str(b.device), pinned=False,
-                    reused=False) as attrs:
+                    device=str(b.device), pinned=False, reused=False,
+                    staged=False) as attrs:
         pinned = _pinned([b.shape], b.dtype)
-        if pinned is None:
-            out = to_numpy(b)
-        else:
+        if pinned is not None:
             (dst,), reused = pinned
             attrs.update(pinned=True, reused=reused)
             dst.copy_(b.detach())
             out = dst.numpy()
+        elif (staged := _read_staged(b.detach())) is not None:
+            out, reused, chunks, lanes = staged
+            attrs.update(staged=True, reused=reused, chunks=chunks,
+                         lanes=lanes)
+        else:
+            out = to_numpy(b)
         attrs["bytes"] = out.nbytes
     return out
 
 
 #: bytes of each page-locked staging block of a gather off the slots
-#: (:func:`_gather_off_cards`) and of a hand-off to the cards
+#: (:func:`_gather_off_cards`), of a staged read off one card
+#: (:func:`_read_staged`) and of a hand-off to the cards
 #: (:func:`_stage_to`): a power of two, so torch's caching host
 #: allocator takes no more than asked
 STAGE_BYTES = 256 << 20
@@ -221,9 +230,13 @@ STAGE_BYTES = 256 << 20
 UPLOAD_BYTES = 64 << 20
 
 #: host threads (lanes) of one hand-off to the cards, at most the host's
-#: CPUs, dealt over its slots (one at least each): on the H100 host of 8
-#: CPUs, copies of a warm 147.5 MB band into page-locked memory ran at
-#: 5.8 GB/s on one thread, 16 on four and 21 on eight
+#: CPUs, dealt over its slots (one at least each), and of one staged
+#: read off a card (:func:`_read_staged`): on the H100 host of 8 CPUs,
+#: copies of a warm 147.5 MB band into page-locked memory ran at 5.8
+#: GB/s on one thread, 16 on four and 21 on eight; an 18.9 GB volume's
+#: staged read into fresh memory at 5.2-5.6 GB/s on 1, 4 or 8 lanes
+#: (each lane's copy runs on torch's intra-op threads; the first touch
+#: of the pages bounds it), against 2.3 for one pageable copy
 UPLOAD_LANES = 8
 
 
@@ -246,10 +259,11 @@ def stage_chunks(n: int, rows: int) -> list[tuple[int, int]]:
 
 def upload_plan(shape: Sequence[int], itemsize: int, lanes: int
                 ) -> list[tuple[int, int]]:
-    """Each lane's [lo, hi) of the leading rows of a host block of
-    ``shape`` handed to a card (:func:`_stage_to`): the rows dealt in
-    near-equal runs (:func:`split_sizes`) over ``lanes`` lanes, or over
-    the rows where there are fewer.  Each lane then takes its run
+    """Each lane's [lo, hi) of the leading rows of a block of ``shape``
+    handed to a card (:func:`_stage_to`) or read off one
+    (:func:`_read_staged`): the rows dealt in near-equal runs
+    (:func:`split_sizes`) over ``lanes`` lanes, or over the rows where
+    there are fewer.  Each lane then takes its run
     :func:`stage_rows` rows at a time.  Empty where a row is larger
     than a staging block."""
     if stage_rows(shape, itemsize) == 0:
@@ -361,12 +375,13 @@ _lanes: ThreadPoolExecutor | None = None
 
 
 def _lane_pool() -> ThreadPoolExecutor:
-    """The threads that run the lanes of every hand-off to the cards in
-    the process (:func:`_fill_all`), made at the first hand-off and
+    """The threads that run the lanes of every hand-off to the cards
+    (:func:`_fill_all`) and of every staged read off one card
+    (:func:`_read_staged`) in the process, made at the first use and
     kept, as the caching host allocator keeps the staging blocks: a
     pool of eight threads made for each band cost 1.5–2.7 ms on the
     H100 host, a fifth of the staged copy.  It makes a thread only when
-    none is idle, so concurrent hand-offs do not wait on each other."""
+    none is idle, so concurrent copies do not wait on each other."""
     global _lanes
     with _lanes_lock:
         if _lanes is None:
@@ -443,6 +458,38 @@ def _stage_to(srcs: Sequence[np.ndarray], devices: Sequence[torch.device]
             for lo, hi in plan]
     chunks = _fill_all([r[0] for r in runs], [r[1] for r in runs], stages)
     return outs, reused, chunks
+
+
+def _read_staged(b: torch.Tensor
+                 ) -> tuple[np.ndarray, bool, int, int] | None:
+    """``b`` (a tensor on a card) in one fresh pageable host array,
+    through recycled page-locked staging blocks: its leading rows dealt
+    in near-equal runs over :data:`UPLOAD_LANES` lanes (at most the
+    host's CPUs; :func:`upload_plan`), each lane on a thread of
+    :func:`_lane_pool`, with a stream of its own and its own staging
+    blocks (:func:`_stage_blocks`), copying its run into its own view
+    of the array (:func:`_drain`): the card fills one staging block
+    while the lane empties the other, so the lanes share the first
+    touch of the array's pages.  Returns the array, whether every
+    staging block came from the allocator's cache, the chunks and the
+    lanes; None where a row is larger than a staging block or
+    :func:`_stage_blocks` refuses."""
+    plan = upload_plan(b.shape, b.element_size(),
+                       min(UPLOAD_LANES, os.cpu_count() or 1))
+    if not plan:
+        return None
+    staged = _stage_blocks([(hi - lo, *b.shape[1:]) for lo, hi in plan],
+                           b.dtype)
+    if staged is None:
+        return None
+    stages, reused = staged
+    whole = torch.empty(b.shape, dtype=b.dtype)
+    streams = [_side_stream(b.device) for _ in plan]
+    pool = _lane_pool()
+    futures = [pool.submit(_drain, b[lo:hi], whole[lo:hi], s, stream)
+               for (lo, hi), s, stream in zip(plan, stages, streams)]
+    chunks = sum(f.result() for f in futures)
+    return whole.numpy(), reused, chunks, len(plan)
 
 
 def _gather_off_cards(ds: DataSet, st: ShardedTensor) -> np.ndarray:

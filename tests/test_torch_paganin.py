@@ -34,7 +34,7 @@ CELL = "chain-paganin-roi720"
 CPU = torch.device("cpu")
 READERS = ("paganin_roofline.phase", "backproject_roofline.phase",
            "device.idle_pct.phase", "transport.to_host_gbps.phase",
-           "runner.host_pct.phase")
+           "runner.host_pct.phase", "transport.to_host_staged_pct.phase")
 
 
 def _dataset(block):
@@ -289,8 +289,10 @@ def test_a_tiny_copy_of_the_cell_runs_end_to_end(tmp_path):
     res = r["result"]
     assert res["correct"] is True and res["failed"] == 0
     assert res["checks"]["recon_max_rel_err"]["value"] < 1e-5
-    # no device off the card: the idle share has nothing to read
-    assert set(res["metrics"]) == set(READERS) - {"device.idle_pct.phase"}
+    # no device off the card: the idle share has nothing to read, and a
+    # read on the CPU is never staged
+    assert set(res["metrics"]) == set(READERS) - {
+        "device.idle_pct.phase", "transport.to_host_staged_pct.phase"}
     assert not {"jax", "jaxlib", "flax", "repro"} & set(r["modules"])
     r = tiny.run_cell(root, "tiny-phase", 7, 0.3, control="bf16")
     assert r["rc"] == 0 and r["result"]["correct"] is False

@@ -69,4 +69,4 @@ def test_a_refused_or_failed_block_falls_back_to_pageable(monkeypatch, fits):
     assert span.name == "transport.to_host"
     assert span.attrs == {"bytes": data.nbytes, "dataset": "recon",
                           "device": "cpu", "pinned": False,
-                          "reused": False}
+                          "reused": False, "staged": False}
